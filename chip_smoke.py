@@ -1,0 +1,554 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a host with one CUDA card, nvcc and the
+repo's Python dependencies.  The script imports only ``repro_torch`` (from
+``src/``), torch, numpy and scipy.  Every check raises; any failed phase
+exits non-zero.  It prints, in order:
+
+1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions and
+   the time to build the kernels from ``src/repro_torch/csrc``;
+2. kernel parity: each kernel wrapper on the card against its plain PyTorch
+   version on the same inputs, on the paper's ``gnp_2e5`` (dangling vertices
+   live) and ``pl_2e5`` graphs at K=16, v_tile=512, packet=256, in float32
+   and Q1.25, with the layouts' padding factors;
+3. the served path: ``PPRService(kappa=16, iterations=10, device="cuda")``
+   on ``gnp_2e5`` with ``engine="fused"`` and ``engine="single"``, 64 queries
+   at precision 26 and 32 in float32 each, compared with each other and with
+   the scipy float64 oracle; the fused kernels' launch counts over the run;
+4. early exit on ``pl_2e5`` (``early_exit``, Q1.19, budgets 40 and 120):
+   fused and single return identical states after identical iteration counts;
+5. the SpMV path (``core.spmv.spmv_kernel``) with its launch count, and the
+   times: CUDA-event medians of each kernel, its plain version, the least
+   time the card could take (bytes over 3.35 TB/s), one library call where
+   PyTorch has one, and the service's waves/s and queries/s;
+6. a ``{"kernels": [...]}`` JSON line, then the card line, then the
+   ``{"ok": true, ...}`` line last.
+
+Everything too long for the end of the output goes to
+``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+K = 16
+V_TILE = 512
+PACKET = 256
+ALPHA = 0.85
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
+WARMUP, REPEATS = 3, 15
+
+
+def _fail(msg: str) -> None:
+    raise AssertionError(msg)
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        _fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def _graphs():
+    from repro_torch.graphs import erdos_renyi, holme_kim_powerlaw
+    # the paper's Table 1 sizes, as repro.graphs.paper_graph_suite(scale=1.0)
+    return {"gnp_2e5": erdos_renyi(200_000, 2_000_000, seed=1),
+            "pl_2e5": holme_kim_powerlaw(200_000, m=10, seed=5)}
+
+
+def _time_ms(torch, fn, repeats=REPEATS):
+    """Median CUDA-event time of ``fn()`` in ms, after warm-up."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# ---------------------------------------------------------------------------
+# phase 2 + 5: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def _inputs(np, g, fmt, seed):
+    """A state P [V, K] and V̄ [V, K] from a seed, in the domain of ``fmt``."""
+    rng = np.random.default_rng(seed)
+    v = g.num_vertices
+    pers = rng.choice(v, K, replace=False)
+    p = (rng.random((v, K)) * (2.0 / v)).astype(np.float32)
+    p[pers, np.arange(K)] += 0.15
+    vm = np.zeros((v, K), np.float32)
+    vm[pers, np.arange(K)] = 1.0
+    if fmt is None:
+        return p, vm
+    raw = np.floor(p.astype(np.float64) * fmt.scale).astype(np.uint32)
+    return raw.view(np.int32), (vm * fmt.scale).astype(np.uint32).view(np.int32)
+
+
+def kernel_phase(torch, np, graphs, dev, timing: bool):
+    from repro_torch.core.coo import BlockedCOO
+    from repro_torch.core.fixed_point import Q1_25
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.coo_spmv import coo_spmv_kernel, coo_spmv_plain
+    from repro_torch.kernels.fused_ppr import (dangling_mass, dangling_mass_plain,
+                                               fused_ppr_iteration, fused_ppr_plain)
+    from repro_torch.ppr_serving.engine.fused import FusedRegisteredGraph
+
+    rows = []
+    for gname, g in graphs.items():
+        blocked = BlockedCOO.build(g, v_tile=V_TILE, packet=PACKET)
+        frg = FusedRegisteredGraph(gname, g, packet=PACKET, v_tile=V_TILE,
+                                   device=dev)
+        lay = frg.fused_layout()
+        topo = frg.fused_topology()
+        fused_slots = (lay.num_rows - 1) * PACKET
+        print(f"[layout] {gname}: |V|={g.num_vertices} |E|={g.num_edges} "
+              f"dangling={int(g.dangling.sum())} BlockedCOO packets="
+              f"{blocked.num_packets} pad_overhead={blocked.pad_overhead:.4f} "
+              f"fused rows={lay.num_rows - 1} pad={fused_slots / g.num_edges:.4f}")
+        v = g.num_vertices
+        n_dang = int(topo["dang_idx"].shape[0])
+        for fmt in (None, Q1_25):
+            dom = "f32" if fmt is None else fmt.name
+            p_np, vm_np = _inputs(np, g, fmt, seed=len(gname) + (0 if fmt is None else 7))
+            p = torch.as_tensor(p_np, device=dev)
+            vm = torch.as_tensor(vm_np, device=dev)
+
+            # -- kernel 1: coo_spmv ------------------------------------------
+            op = ops.spmv_operands(blocked, dev, fmt)
+            pp = ops.pad_p_for_blocks(p, blocked)
+            args = (op["x_local"], op["y_local"], op["val"], pp,
+                    op["dst_start"], op["packet_src"])
+            kw = dict(v_tile=V_TILE, packet=PACKET, n_dst=blocked.n_dst,
+                      frac_bits=None if fmt is None else fmt.frac_bits)
+            out_k = coo_spmv_kernel(*args, **kw)
+            out_p = coo_spmv_plain(*args, **kw)
+            if fmt is None:
+                err = float((out_k - out_p).abs().max())
+                if not torch.allclose(out_k, out_p, rtol=1e-5, atol=1e-8):
+                    _fail(f"coo_spmv {gname} f32: max abs err {err}")
+            else:
+                err = 0.0
+                if not torch.equal(out_k, out_p):
+                    _fail(f"coo_spmv {gname} {dom}: raw bits differ")
+            row = dict(kernel="coo_spmv", graph=gname, domain=dom, max_abs_err=err,
+                       pad_overhead=blocked.pad_overhead)
+            # real edges stream 2 + 2 + 4 B; a pad slot only its 4 B value,
+            # which the kernel reads to find it is a pad
+            slots = blocked.num_packets * PACKET
+            real = int((op["val"] != 0).sum())
+            row["bound_ms"] = _bound_ms(
+                real * 8 + (slots - real) * 4 + blocked.num_packets * 4
+                + (blocked.n_dst + 1) * 4 + pp.numel() * 4 + out_k.numel() * 4)
+            # the same function over the unpadded edge list
+            row["unpadded_bound_ms"] = _bound_ms(g.num_edges * 8 + 2 * v * K * 4)
+            if timing:
+                row["ms"] = _time_ms(torch, lambda: coo_spmv_kernel(*args, **kw))
+                row["plain_ms"] = _time_ms(torch, lambda: coo_spmv_plain(*args, **kw),
+                                           repeats=10)
+                row["library_ms"] = None
+                if fmt is None:   # one torch.sparse.mm on a CSR copy of X
+                    X = torch.sparse_coo_tensor(
+                        torch.as_tensor(np.stack([g.x, g.y]).astype(np.int64), device=dev),
+                        torch.as_tensor(g.val, device=dev), (v, v)).coalesce().to_sparse_csr()
+                    row["library_ms"] = _time_ms(torch, lambda: torch.sparse.mm(X, p))
+                    ref = torch.sparse.mm(X, p)
+                    lib_err = float((ref - out_k[:v]).abs().max())
+                    if lib_err > 1e-6:
+                        _fail(f"coo_spmv {gname} f32 vs torch.sparse.mm: {lib_err}")
+            rows.append(row)
+
+            # -- kernel 2: the fused iteration (a + b) ----------------------
+            val2 = frg.fused_values(fmt)
+            fargs = (topo["row_off"], topo["row_src"], topo["x2"], topo["y2"], val2,
+                     topo["dang_idx"], vm, p)
+            fkw = dict(v_tile=V_TILE, packet=PACKET, n_blk=lay.n_blk,
+                       num_vertices=v, alpha=ALPHA, fmt=fmt)
+            pn_k, res_k = fused_ppr_iteration(*fargs, **fkw)
+            pn_p, res_p = fused_ppr_plain(*fargs, **fkw)
+            if fmt is None:
+                err = float((pn_k - pn_p).abs().max())
+                if err > 1e-6 or not torch.allclose(pn_k, pn_p, rtol=1e-5, atol=1e-9):
+                    _fail(f"fused {gname} f32: P_next max abs err {err} "
+                          f"(limits: rtol 1e-5 + atol 1e-9, and 1e-6)")
+                for r in (0, 2):
+                    if not torch.allclose(res_k[r], res_p[r], rtol=1e-4, atol=0.0):
+                        _fail(f"fused {gname} f32: residual row {r} {res_k[r]} vs {res_p[r]}")
+                if float((res_k[1] - res_p[1]).abs().max()) > 1e-6:
+                    _fail(f"fused {gname} f32: inf residual {res_k[1]} vs {res_p[1]}")
+            else:
+                err = 0.0
+                if not torch.equal(pn_k, pn_p):
+                    _fail(f"fused {gname} {dom}: P_next raw bits differ")
+                if not torch.equal(res_k[1], res_p[1]):
+                    _fail(f"fused {gname} {dom}: inf residual differs")
+                for r in (0, 2):
+                    if not torch.allclose(res_k[r], res_p[r], rtol=1e-4, atol=0.0):
+                        _fail(f"fused {gname} {dom}: residual row {r}")
+            row = dict(kernel="fused_ppr_iteration", graph=gname, domain=dom,
+                       max_abs_err=err, launches_per_iteration=2,
+                       pad_overhead=fused_slots / g.num_edges)
+            # P and V̄ read once, P_next written once; stream bytes as above
+            state = v * K * 4
+            real = int((val2 != 0).sum())
+            row["bound_ms"] = _bound_ms(
+                real * 8 + (fused_slots - real) * 4 + (lay.num_rows - 1) * 4
+                + (lay.n_blk + 1) * 4 + n_dang * 4 + 3 * state + 3 * K * 4)
+            row["unpadded_bound_ms"] = _bound_ms(
+                g.num_edges * 8 + n_dang * 4 + 3 * state + 3 * K * 4)
+            if timing:
+                row["ms"] = _time_ms(torch, lambda: fused_ppr_iteration(*fargs, **fkw))
+                row["plain_ms"] = _time_ms(torch, lambda: fused_ppr_plain(*fargs, **fkw),
+                                           repeats=10)
+                row["library_ms"] = None
+            rows.append(row)
+
+            dm_k = dangling_mass(p, topo["dang_idx"], fixed=fmt is not None)
+            dm_p = dangling_mass_plain(p, topo["dang_idx"], fixed=fmt is not None)
+            if fmt is None:
+                err = float((dm_k - dm_p).abs().max())
+                if not torch.allclose(dm_k, dm_p, rtol=1e-5, atol=1e-8):
+                    _fail(f"dangling_mass {gname} f32: {dm_k} vs {dm_p}")
+            else:
+                err = 0.0
+                if not torch.equal(dm_k, dm_p):
+                    _fail(f"dangling_mass {gname} {dom}: raw bits differ")
+            nbytes = n_dang * (4 + K * 4) + K * 4
+            row = dict(kernel="fused_ppr_dangling_mass", graph=gname, domain=dom,
+                       max_abs_err=err, pad_overhead=1.0, bound_ms=_bound_ms(nbytes),
+                       unpadded_bound_ms=_bound_ms(nbytes))
+            if timing:
+                row["ms"] = _time_ms(torch, lambda: dangling_mass(
+                    p, topo["dang_idx"], fixed=fmt is not None))
+                row["plain_ms"] = _time_ms(torch, lambda: dangling_mass_plain(
+                    p, topo["dang_idx"], fixed=fmt is not None))
+                row["library_ms"] = None
+                if fmt is None:   # one dense product d̄ᵀP, the reference's float path
+                    d = torch.as_tensor(g.dangling.astype(np.float32), device=dev)
+                    row["library_ms"] = _time_ms(torch, lambda: d @ p)
+            rows.append(row)
+            print(f"[parity] {gname} {dom}: coo_spmv, fused_ppr_iteration, "
+                  f"dangling_mass pass")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the served path
+# ---------------------------------------------------------------------------
+def _serve(torch, svc_cls, query_cls, g, engine, queries, dev, passes):
+    """Serve ``queries`` once to warm up, then ``passes`` timed times.
+    Returns (last pass's recommendations, per-pass seconds, waves run in
+    all, telemetry summary over the timed passes)."""
+    svc = svc_cls(kappa=16, iterations=10, cache_capacity=0, device=dev)
+    svc.register_graph("g", g, formats=[26], engine=engine)
+
+    def run():
+        futs = [svc.submit(query_cls("g", v, k=10, precision=prec))
+                for v, prec in queries]
+        svc.flush()
+        recs = [f.result() for f in futs]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return recs
+
+    run()                                   # warm-up: builds, uploads, caches
+    warm_waves = int(svc.telemetry_summary()["waves"])
+    svc.telemetry.reset()
+    times = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        recs = run()
+        times.append(time.perf_counter() - t0)
+    summary = svc.telemetry_summary()
+    return recs, times, warm_waves + int(summary["waves"]), summary
+
+
+def service_phase(torch, np, g, dev, n_fixed=64, n_float=32, passes=10):
+    from repro_torch.graphs import ppr_reference
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+
+    rng = np.random.default_rng(2020)
+    verts = rng.choice(g.num_vertices, n_fixed + n_float, replace=False)
+    queries = ([(int(v), 26) for v in verts[:n_fixed]]
+               + [(int(v), None) for v in verts[n_fixed:]])
+    reset_launch_counts()
+    fused, t_fused, waves_run, s_fused = _serve(
+        torch, PPRService, PPRQuery, g, "fused", queries, dev, passes)
+    counts = launch_counts()
+    waves = int(s_fused["waves"])           # over the timed passes
+    for name in ("fused_ppr_iteration", "fused_ppr_dangling_mass"):
+        if counts[name] == 0:
+            _fail(f"the served path launched {name} no time")
+    single, t_single, _, s_single = _serve(
+        torch, PPRService, PPRQuery, g, "single", queries, dev, passes)
+    float_err, float_vert_agree = 0.0, 0
+    for rf, rs in zip(fused, single):
+        if rf.precision != rs.precision:
+            _fail("precision keys differ between engines")
+        if rf.precision != "f32":
+            if not (np.array_equal(rf.vertices, rs.vertices)
+                    and np.array_equal(rf.scores, rs.scores)):
+                _fail(f"fixed recommendation for vertex {rf.query.vertex} "
+                      f"differs between fused and single")
+        else:
+            float_err = max(float_err, float(np.abs(rf.scores - rs.scores).max()))
+            float_vert_agree += int(np.array_equal(rf.vertices, rs.vertices))
+        if not np.all(np.isfinite(rf.scores)) or rf.vertices.shape != (10,):
+            _fail("a recommendation is not 10 finite scores")
+        if rf.query.vertex in set(rf.vertices.tolist()):
+            _fail("a query vertex recommended itself")
+    if float_err > 1e-6:
+        _fail(f"float scores differ by {float_err} between fused and single")
+    # top-10 overlap with the scipy float64 oracle for 8 queries
+    pers = np.asarray([v for v, _ in queries[:4]] + [v for v, _ in queries[-4:]])
+    ref = ppr_reference(g, pers, alpha=ALPHA, iterations=100)
+    overlaps = []
+    for j, v in enumerate(pers):
+        col = ref[:, j].copy()
+        col[v] = -np.inf
+        top = set(np.argsort(-col, kind="stable")[:10].tolist())
+        rec = fused[j] if j < 4 else fused[len(fused) - 8 + j]
+        overlaps.append(len(top & set(rec.vertices.tolist())))
+    def rates(times, n):                     # all over all time, and per pass
+        per = [n / t for t in times]
+        return n * len(times) / sum(times), min(per), max(per)
+
+    fq, fq_lo, fq_hi = rates(t_fused, len(queries))
+    sq, sq_lo, sq_hi = rates(t_single, len(queries))
+    out = dict(queries_per_pass=len(queries), passes=passes,
+               waves=waves, fused_pass_s=t_fused, single_pass_s=t_single,
+               fused_queries_per_s=fq, fused_queries_per_s_pass_range=[fq_lo, fq_hi],
+               fused_waves_per_s=waves / sum(t_fused),
+               single_queries_per_s=sq, single_queries_per_s_pass_range=[sq_lo, sq_hi],
+               single_waves_per_s=int(s_single["waves"]) / sum(t_single),
+               fused_wave_latency_p50_s=s_fused["wave_latency_p50_s"],
+               single_wave_latency_p50_s=s_single["wave_latency_p50_s"],
+               fused_wave_latency_p95_s=s_fused["wave_latency_p95_s"],
+               single_wave_latency_p95_s=s_single["wave_latency_p95_s"],
+               launches=counts, launches_per_wave={
+                   k: v / waves_run for k, v in counts.items()},
+               float_max_score_diff=float_err,
+               float_vertex_lists_equal=float_vert_agree,
+               oracle_top10_overlap=overlaps)
+    print(f"[service] gnp_2e5: {passes} timed passes of {len(queries)} queries "
+          f"({waves} waves) per engine; "
+          f"fixed recommendations identical; float max score diff {float_err:.3e}; "
+          f"float lists equal {float_vert_agree}/{n_float}")
+    print(f"[service] fused launches during the phase: {counts}; per wave: "
+          f"fused_ppr_iteration {counts['fused_ppr_iteration'] / waves_run:g}, "
+          f"fused_ppr_dangling_mass {counts['fused_ppr_dangling_mass'] / waves_run:g}")
+    print(f"[service] top-10 overlap with scipy float64 oracle (4 Q1.25, 4 f32): "
+          f"{overlaps}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: early exit
+# ---------------------------------------------------------------------------
+def early_exit_phase(torch, np, g, dev, budgets=(40, 120), bits=20):
+    """Fused vs single under ``early_exit``: identical states and iteration
+    counts at each budget (the service at the first).  At 40 iterations Q1.19
+    on pl_2e5 has not reached its absorbing state yet; the longer budget
+    exercises the exit itself."""
+    from repro_torch.autotune import ConvergencePolicy
+    from repro_torch.core.fixed_point import format_for_bits
+    from repro_torch.ppr_serving import PPRQuery, PPRService, get_engine
+    from repro_torch.ppr_serving.engine.fused import FusedRegisteredGraph
+    from repro_torch.ppr_serving.graphs import RegisteredGraph
+
+    fmt = format_for_bits(bits)
+    pol = ConvergencePolicy()
+    pers = torch.as_tensor(np.random.default_rng(7).choice(g.num_vertices, K,
+                                                           replace=False), device=dev)
+    graphs = {"fixed": RegisteredGraph("g", g, device=dev),
+              "fused_fixed": FusedRegisteredGraph("g", g, v_tile=V_TILE, device=dev)}
+    out = []
+    for budget in budgets:
+        results = {}
+        for key, rg in graphs.items():
+            plan = get_engine(key).plan(rg, fmt, alpha=ALPHA, iterations=budget,
+                                        convergence=pol)
+            Vmat = plan.initial(pers)
+            results[key] = plan.iterate(lambda P_: plan.step(Vmat, P_), Vmat)
+        (p_s, it_s), (p_f, it_f) = results["fixed"], results["fused_fixed"]
+        if it_s != it_f:
+            _fail(f"early exit after {it_f} (fused) vs {it_s} (single) iterations")
+        if not torch.equal(p_s, p_f):
+            _fail("early-exit states differ between fused and single")
+        print(f"[early-exit] pl_2e5 {fmt.name} budget {budget}: fused and single "
+              f"both stop after {it_f} iterations with identical states")
+        out.append(dict(budget=budget, iterations_run=it_f, format=fmt.name))
+    recs = {}
+    for engine in ("single", "fused"):
+        svc = PPRService(kappa=16, iterations=budgets[0], early_exit=True,
+                         cache_capacity=0, device=dev)
+        svc.register_graph("g", g, formats=[bits], engine=engine)
+        recs[engine] = svc.run_batch([PPRQuery("g", int(v), k=10, precision=bits)
+                                      for v in pers.tolist()])
+    for a, b in zip(recs["single"], recs["fused"]):
+        if not (np.array_equal(a.vertices, b.vertices)
+                and np.array_equal(a.scores, b.scores)):
+            _fail("early-exit recommendations differ between fused and single")
+    print(f"[early-exit] service budget {budgets[0]}: identical recommendations")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the SpMV path
+# ---------------------------------------------------------------------------
+def spmv_path_phase(torch, np, g, dev):
+    from repro_torch.core import BlockedCOO, Q1_25, spmv_fixed, spmv_float, spmv_kernel
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import pad_p_for_blocks
+
+    blocked = BlockedCOO.build(g, v_tile=V_TILE, packet=PACKET)
+    v = g.num_vertices
+    x = torch.as_tensor(g.x, device=dev)
+    y = torch.as_tensor(g.y, device=dev)
+    outs = {}
+    reset_launch_counts()
+    for fmt in (None, Q1_25):
+        p_np, _ = _inputs(np, g, fmt, seed=11)
+        p = torch.as_tensor(p_np, device=dev)
+        outs[fmt] = (p, spmv_kernel(blocked, pad_p_for_blocks(p, blocked), fmt=fmt)[:v])
+    counts = launch_counts()
+    if counts["coo_spmv"] == 0:
+        _fail("the SpMV path launched coo_spmv no time")
+    p, out = outs[None]
+    ref = spmv_float(x, y, torch.as_tensor(g.val, device=dev), p, v)
+    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-8):
+        _fail("spmv_kernel f32 differs from spmv_float")
+    p, out = outs[Q1_25]
+    ref = spmv_fixed(x, y, torch.as_tensor(g.quantized_val(Q1_25).view(np.int32),
+                                           device=dev), p, v, Q1_25)
+    if not torch.equal(out, ref):
+        _fail("spmv_kernel Q1.25 differs from spmv_fixed")
+    print(f"[spmv] gnp_2e5 spmv_kernel matches spmv_float/spmv_fixed; "
+          f"launches {counts['coo_spmv']}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from the "
+              f"root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+
+    from repro_torch.kernels import _build
+
+    card = _card_line()
+    dev = torch.device("cuda")
+    print(f"[card] {card}")
+    print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    print(f"[build] {', '.join(_build.SOURCES)} in {build_s:.2f} s")
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas] {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    graphs = _graphs()
+    print(f"[graphs] generated in {time.perf_counter() - t0:.1f} s")
+    rows = kernel_phase(torch, np, graphs, dev, timing=True)
+    service = service_phase(torch, np, graphs["gnp_2e5"], dev)
+    early = early_exit_phase(torch, np, graphs["pl_2e5"], dev)
+    spmv_counts = spmv_path_phase(torch, np, graphs["gnp_2e5"], dev)
+
+    print("[times] kernel graph domain: ms plain_ms bound_ms library_ms "
+          "unpadded_bound_ms pad_overhead")
+    for r in rows:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"[times] {r['kernel']} {r['graph']} {r['domain']}: {r['ms']:.4f} "
+              f"{r['plain_ms']:.4f} {r['bound_ms']:.4f} {lib} "
+              f"{r['unpadded_bound_ms']:.4f} {r['pad_overhead']:.4f}")
+    sv = service
+    print(f"[times] service gnp_2e5 over {sv['passes']} passes: fused "
+          f"{sv['fused_queries_per_s']:.1f} queries/s (passes "
+          f"{sv['fused_queries_per_s_pass_range'][0]:.1f}-"
+          f"{sv['fused_queries_per_s_pass_range'][1]:.1f}), "
+          f"{sv['fused_waves_per_s']:.2f} waves/s; single "
+          f"{sv['single_queries_per_s']:.1f} queries/s (passes "
+          f"{sv['single_queries_per_s_pass_range'][0]:.1f}-"
+          f"{sv['single_queries_per_s_pass_range'][1]:.1f}), "
+          f"{sv['single_waves_per_s']:.2f} waves/s; wave latency p50/p95 fused "
+          f"{sv['fused_wave_latency_p50_s'] * 1e3:.2f}/"
+          f"{sv['fused_wave_latency_p95_s'] * 1e3:.2f} ms, single "
+          f"{sv['single_wave_latency_p50_s'] * 1e3:.2f}/"
+          f"{sv['single_wave_latency_p95_s'] * 1e3:.2f} ms")
+
+    launches = dict(service["launches"], coo_spmv=spmv_counts["coo_spmv"])
+    sources = {"coo_spmv": ("src/repro_torch/csrc/coo_spmv.cu",
+                            "src/repro/kernels/coo_spmv.py:125"),
+               "fused_ppr_iteration": ("src/repro_torch/csrc/fused_ppr.cu",
+                                       "src/repro/kernels/fused_ppr.py:404"),
+               "fused_ppr_dangling_mass": ("src/repro_torch/csrc/fused_ppr.cu",
+                                           "src/repro/kernels/fused_ppr.py:365")}
+    kernels = []
+    for r in rows:
+        if r["graph"] != "gnp_2e5":
+            continue
+        src, repl = sources[r["kernel"]]
+        kernels.append(dict(
+            name=f"{r['kernel']}[{r['domain']}]", route="cuda", source=src,
+            replaces=repl, launches=launches[r["kernel"]],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
+            unpadded_bound_ms=r["unpadded_bound_ms"], pad_overhead=r["pad_overhead"],
+            parity="pass"))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
+        card=card, torch=torch.__version__, cuda=torch.version.cuda,
+        build_s=build_s, kernel_rows=rows, service=service, early_exit=early,
+        kernels=kernels), indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

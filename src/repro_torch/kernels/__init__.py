@@ -1,0 +1,37 @@
+"""Hand-written CUDA kernels for the paper's compute hot-spots, for Hopper.
+
+- coo_spmv:   the paper's streaming COO SpMM (csrc/coo_spmv.cu), float32
+              and bit-exact fixed point.
+- fused_ppr:  one whole eq. (1) iteration (csrc/fused_ppr.cu): dangling-mass
+              fold, SpMV, combine and residual.
+
+Every kernel has its plain PyTorch version beside it: a wrapper runs the
+plain version for CPU tensors and launches the kernel (or raises) for CUDA
+tensors.  ``ops.py`` holds the public wrappers; ``ref.py`` the oracles;
+``_build.py`` compiles ``csrc/`` with nvcc at first CUDA use.
+"""
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.coo_spmv import coo_spmv_kernel
+from repro_torch.kernels.fused_ppr import dangling_mass, fused_ppr_iteration
+
+#: every kernel wrapper, by name; each carries a ``launches`` count
+KERNEL_WRAPPERS = {
+    "coo_spmv": coo_spmv_kernel,
+    "fused_ppr_dangling_mass": dangling_mass,
+    "fused_ppr_iteration": fused_ppr_iteration,
+}
+
+
+def launch_counts() -> dict:
+    """Launches per kernel wrapper since the last reset."""
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+__all__ = ["ops", "ref", "coo_spmv_kernel", "fused_ppr_iteration",
+           "dangling_mass", "KERNEL_WRAPPERS", "launch_counts",
+           "reset_launch_counts"]

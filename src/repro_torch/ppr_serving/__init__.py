@@ -1,0 +1,53 @@
+"""PPR recommendation serving (counterpart of ``repro.ppr_serving``).
+
+``PPRService`` admits queries into κ-batched waves on a registered graph and
+serves ranked, self-excluding top-K ``Recommendation``s through futures.  A
+graph registers onto an engine family: "single" (plain PyTorch) or "fused"
+(the hand-written fused-iteration CUDA kernel; its plain version on the CPU).
+Everything runs on the service's ``device`` ("cuda" unless the caller asks
+for the CPU).
+"""
+from repro_torch.ppr_serving.cache import LRUCache
+from repro_torch.ppr_serving.engine import (
+    FixedEngine,
+    FloatEngine,
+    FusedFixedEngine,
+    FusedFloatEngine,
+    FusedRegisteredGraph,
+    WaveEngine,
+    WavePlan,
+    engine_families,
+    engine_for,
+    engine_names,
+    family_members,
+    get_engine,
+    register_engine,
+)
+from repro_torch.ppr_serving.futures import PPRFuture, QueryRejected
+from repro_torch.ppr_serving.graphs import RegisteredGraph
+from repro_torch.ppr_serving.scheduler import Wave, WaveScheduler
+from repro_torch.ppr_serving.service import (
+    AUTO_KEY,
+    FLOAT_KEY,
+    PPRQuery,
+    PPRService,
+    Recommendation,
+    normalize_precision,
+    precision_key,
+)
+from repro_torch.ppr_serving.telemetry import SINGLE_DEVICE_KEY, ServiceTelemetry
+from repro_torch.ppr_serving.topk import topk_dense, topk_streaming
+
+__all__ = [
+    "PPRService", "PPRQuery", "Recommendation", "PPRFuture", "QueryRejected",
+    "RegisteredGraph", "FusedRegisteredGraph",
+    "WaveEngine", "WavePlan",
+    "register_engine", "get_engine", "engine_for", "family_members",
+    "engine_names", "engine_families",
+    "FloatEngine", "FixedEngine", "FusedFloatEngine", "FusedFixedEngine",
+    "normalize_precision", "precision_key", "AUTO_KEY", "FLOAT_KEY",
+    "SINGLE_DEVICE_KEY",
+    "WaveScheduler", "Wave",
+    "LRUCache", "ServiceTelemetry",
+    "topk_dense", "topk_streaming",
+]

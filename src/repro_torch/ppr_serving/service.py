@@ -1,0 +1,455 @@
+"""`PPRService` — the futures-based query front-end over the engine backends.
+
+Counterpart of ``repro.ppr_serving.service``.  Lifecycle: graphs are
+registered once onto an engine family (host arrays moved to the service's
+device, edge stream padded to packets, per-format quantized values cached),
+then queries flow through
+
+    submit → precision resolution → result cache probe
+           → PPRFuture (resolved immediately on a hit; else queued)
+           → κ-batch scheduler → wave launch → engine plan (step + iterate +
+             early-exit + top-K) → futures resolve → cache fill
+
+A wave shares one edge stream over up to κ personalization columns (the
+paper's κ-batching).  Results are ranked ``Recommendation``s — the query
+vertex itself is always excluded from its own top-k.
+
+Not in this slice, each raising ``NotImplementedError`` that names the slice
+that brings it: ``precision="auto"`` and its controller, ``warm_start`` and
+``prefetch`` (the autotune slice), ``tracing``, ``slo`` and ``otlp`` (the
+observability slice), ``mesh`` (the multi-GPU slice), ``apply_delta`` (the
+delta slice), and the deprecated ``serve``/``pump``/``drain``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.autotune.convergence import ConvergencePolicy
+from repro_torch.core.fixed_point import PAPER_FORMATS, QFormat, format_for_bits
+from repro_torch.device import resolve_device
+from repro_torch.obs import FlightRecorder
+from repro_torch.ppr_serving.cache import LRUCache
+from repro_torch.ppr_serving.engine import engine_families, engine_for, family_members
+from repro_torch.ppr_serving.futures import PPRFuture, QueryRejected
+from repro_torch.ppr_serving.graphs import RegisteredGraph
+from repro_torch.ppr_serving.scheduler import Wave, WaveScheduler
+from repro_torch.ppr_serving.telemetry import ServiceTelemetry
+
+Precision = Union[None, int, str, QFormat]
+
+FLOAT_KEY = "f32"
+AUTO_KEY = "auto"
+
+_AUTOTUNE_SLICE = "the autotune slice (precision='auto', warm start, prefetch)"
+_OBS_SLICE = "the observability slice (tracing, SLO, OTLP)"
+_MESH_SLICE = "the multi-GPU slice"
+_DELTA_SLICE = "the delta slice (apply_delta with the fused refresh_fused)"
+
+
+def _later(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: it comes with "
+                               f"{slice_name}")
+
+
+def normalize_precision(precision: Precision) -> Optional[QFormat]:
+    """None/"f32" → float32 path; int bits / "Q1.f" / QFormat → fixed path."""
+    if precision == AUTO_KEY:
+        raise ValueError('precision="auto" must be resolved by the service\'s '
+                         'precision controller before normalization')
+    if precision is None or precision == FLOAT_KEY:
+        return None
+    if isinstance(precision, QFormat):
+        return precision
+    if isinstance(precision, int):
+        return format_for_bits(precision)
+    if isinstance(precision, str):
+        if precision in PAPER_FORMATS:
+            return PAPER_FORMATS[precision]
+        if precision.startswith("Q") and precision.count(".") == 1:
+            i, f = precision[1:].split(".")
+            try:
+                return QFormat(int(i), int(f))
+            except ValueError:
+                pass   # malformed digits ("Q1.25x") → the descriptive error
+    raise ValueError(f"unknown precision spec: {precision!r}")
+
+
+def precision_key(precision: Precision) -> str:
+    fmt = normalize_precision(precision)
+    return FLOAT_KEY if fmt is None else fmt.name
+
+
+@dataclasses.dataclass(frozen=True)
+class PPRQuery:
+    """One recommendation request.
+
+    ``deadline`` bounds how long the query may wait in the admission queue for
+    its wave to fill (seconds); it does not bound the iteration time itself.
+    ``quality_target`` and ``prefetch`` belong to the autotune slice.
+    """
+    graph: str
+    vertex: int
+    k: int = 10
+    precision: Precision = None
+    deadline: Optional[float] = None
+    quality_target: Optional[float] = None
+    prefetch: bool = False
+
+
+@dataclasses.dataclass
+class Recommendation:
+    query: PPRQuery
+    vertices: np.ndarray           # [k] ranked vertex ids (self excluded)
+    scores: np.ndarray             # [k] float scores (dequantized for fixed)
+    source: str                    # "wave" | "cache"
+    wave_id: int = -1
+    latency_s: float = 0.0
+    precision: str = ""            # resolved precision key ("f32" / "Q1.f")
+
+
+class PPRService:
+    """Facade: named graphs on engine backends, κ-batched admission,
+    futures-based results, an LRU result cache and early-exit iterations,
+    on one device (``device="cuda"`` unless the caller asks for the CPU)."""
+
+    def __init__(
+        self,
+        kappa: int = 8,
+        iterations: int = 10,
+        alpha: float = 0.85,
+        max_wait: float = 0.0,
+        cache_capacity: int = 4096,
+        topk_tile: Optional[int] = None,
+        autotune=None,
+        early_exit: Union[None, bool, ConvergencePolicy] = None,
+        warm_start: Union[bool, int] = False,
+        prefetch=None,
+        tracing: Union[bool, float] = False,
+        reservoir_size: int = 1024,
+        time_fn=time.monotonic,
+        slo=None,
+        otlp=None,
+        device="cuda",
+    ):
+        for name, value, slice_name in (
+                ("autotune", autotune, _AUTOTUNE_SLICE),
+                ("warm_start", warm_start, _AUTOTUNE_SLICE),
+                ("prefetch", prefetch, _AUTOTUNE_SLICE),
+                ("tracing", tracing, _OBS_SLICE),
+                ("slo", slo, _OBS_SLICE),
+                ("otlp", otlp, _OBS_SLICE)):
+            if value is not None and value is not False:
+                raise _later(f"PPRService({name}=...)", slice_name)
+        self.device = resolve_device(device)
+        self.kappa = kappa
+        self.iterations = iterations
+        self.alpha = alpha
+        self.topk_tile = topk_tile
+        self.time_fn = time_fn
+        self.scheduler = WaveScheduler(kappa, max_wait=max_wait, time_fn=time_fn)
+        self.cache = LRUCache(cache_capacity)
+        self.telemetry = ServiceTelemetry(reservoir_size=reservoir_size)
+        self.recorder = FlightRecorder()
+        if early_exit is True:
+            self.convergence: Optional[ConvergencePolicy] = ConvergencePolicy()
+        else:
+            self.convergence = early_exit or None
+        self._graphs: Dict[str, RegisteredGraph] = {}
+        self._wave_counter = 0
+        # Guards the quick mutation sections (scheduler, cache, wave
+        # bookkeeping); engine compute runs outside it.  RLock:
+        # PPRFuture.result() re-enters through _drive on the same thread.
+        self._lock = threading.RLock()
+
+    # ------------------------------------------------------------------
+    def register_graph(self, name: str, g, formats: Sequence[Precision] = (),
+                       packet: int = 256, mesh=None,
+                       mesh_axis: Optional[str] = None,
+                       engine: Optional[str] = None) -> RegisteredGraph:
+        """Register a graph onto an engine family; optionally pre-quantize.
+
+        ``engine`` names the backend family serving the graph's waves:
+        "single" (plain PyTorch over the full edge stream, the default) or
+        "fused" (the fused-iteration kernel).  Re-registering an existing name
+        invalidates that graph's cached results and rejects its still-pending
+        futures — nothing computed on the old topology may be served."""
+        if mesh is not None or mesh_axis is not None:
+            raise _later("register_graph(mesh=...)", _MESH_SLICE)
+        with self._lock:
+            return self._register_graph_locked(name, g, formats, packet, engine)
+
+    def _register_graph_locked(self, name, g, formats, packet,
+                               engine) -> RegisteredGraph:
+        family = "single" if engine is None else engine
+        if family not in engine_families():
+            raise ValueError(f"unknown engine family {family!r} "
+                             f"(have {list(engine_families())})")
+        members = family_members(family)
+        if name in self._graphs:
+            self.cache.invalidate(lambda key: key[0] == name)
+            for _key, fut, _t, _d in self.scheduler.extract(
+                    lambda k: k[0] == name):
+                fut._reject(QueryRejected(
+                    f"graph {name!r} was re-registered: the pending query for "
+                    f"vertex {fut.query.vertex} was validated against the old "
+                    f"topology and cannot be served — resubmit it against the "
+                    f"new graph", code="graph-replaced"))
+            self.recorder.record_event("graph_replaced", self.time_fn(),
+                                       graph=name)
+            self.telemetry.forget_graph_demand(name)
+        rg: RegisteredGraph = members[0].make_graph(
+            name, g, packet=packet, device=self.device)
+        rg.engine_family = family
+        if not members[0].fixed:          # float member present: prepare it
+            members[0].prepare(rg)
+        for p in formats:
+            fmt = normalize_precision(p)
+            if fmt is not None:
+                engine_for(family, True).prepare(rg, fmt)
+        self._graphs[name] = rg
+        return rg
+
+    @property
+    def graphs(self) -> Tuple[str, ...]:
+        return tuple(self._graphs)
+
+    def registered_graph(self, name: str) -> RegisteredGraph:
+        """The live registered-graph state."""
+        if name not in self._graphs:
+            raise KeyError(f"graph {name!r} is not registered "
+                           f"(have {list(self._graphs)})")
+        return self._graphs[name]
+
+    def apply_delta(self, name: str, delta) -> Dict[str, float]:
+        raise _later("PPRService.apply_delta", _DELTA_SLICE)
+
+    # ------------------------------------------------------------------
+    def queue_depth(self) -> int:
+        """Pending queries across every wave key — O(1)."""
+        return self.scheduler.queue_depth()
+
+    def oldest_wait_s(self, now: Optional[float] = None) -> float:
+        """Seconds the longest-waiting pending query has been queued."""
+        return self.scheduler.oldest_wait_s(now)
+
+    # ------------------------------------------------------------------
+    def _resolve_precision(self, q: PPRQuery) -> str:
+        if q.precision == AUTO_KEY:
+            raise _later('precision="auto"', _AUTOTUNE_SLICE)
+        return precision_key(q.precision)
+
+    def _cache_key(self, q: PPRQuery, pkey: str,
+                   epoch: Optional[int] = None) -> Tuple:
+        # graph epoch + resolved precision + iteration budget + early-exit:
+        # results computed under different numerics never alias (epoch at
+        # [1], vertex at [2], as in the reference)
+        if epoch is None:
+            epoch = getattr(self._graphs.get(q.graph), "epoch", 0)
+        return (q.graph, epoch, int(q.vertex), pkey,
+                int(q.k), int(self.iterations), self.convergence is not None)
+
+    # ------------------------------------------------------------------
+    # futures API
+    # ------------------------------------------------------------------
+    def submit(self, q: PPRQuery) -> PPRFuture:
+        """One query in, one ``PPRFuture`` out.
+
+        A cache hit resolves the future before this returns; a miss queues
+        the future for the next wave on its (graph, precision, mesh, epoch)
+        stream.  Validation happens here and raises synchronously: one bad
+        query must never poison a wave."""
+        if q.prefetch:
+            raise _later("PPRQuery(prefetch=True)", _AUTOTUNE_SLICE)
+        if q.graph not in self._graphs:
+            raise KeyError(f"graph {q.graph!r} is not registered "
+                           f"(have {list(self._graphs)})")
+        rg = self._graphs[q.graph]
+        if not 0 <= q.vertex < rg.num_vertices:
+            raise ValueError(f"vertex {q.vertex} out of range for {q.graph!r}")
+        if q.k < 1:
+            raise ValueError(f"k must be >= 1, got {q.k}")
+        if q.k > rg.num_vertices - 1:
+            # self-exclusion means at most V-1 recommendable vertices
+            raise ValueError(
+                f"k={q.k} exceeds the {rg.num_vertices - 1} recommendable "
+                f"vertices of {q.graph!r} (|V|={rg.num_vertices}, the query "
+                f"vertex excludes itself)")
+        with self._lock:
+            pkey = self._resolve_precision(q)
+            self.telemetry.record_query_vertex(q.graph, int(q.vertex),
+                                               k=q.k, pkey=pkey)
+            fut = PPRFuture(q, self)
+            hit = self.cache.get(self._cache_key(q, pkey))
+            self.telemetry.record_cache(hit is not None)
+            if hit is not None:
+                verts, scores = hit
+                self.telemetry.record_query_latency(q.graph, 0.0)
+                fut._resolve(Recommendation(q, verts.copy(), scores.copy(),
+                                            source="cache", precision=pkey))
+                return fut
+            key = (q.graph, pkey, rg.mesh_key, rg.epoch)
+            fut._wave_key = key
+            now = self.time_fn()
+            self.scheduler.submit(key, fut, deadline=q.deadline, now=now)
+            self.telemetry.record_queue_depth(self.scheduler.queue_depth(),
+                                              self.scheduler.oldest_wait_s(now))
+            return fut
+
+    def poll(self, now: Optional[float] = None) -> int:
+        """Launch every wave the admission policy considers ready; returns the
+        number of waves launched."""
+        with self._lock:
+            popped = self.scheduler.ready_waves(now=now)
+        for wave in popped:
+            self._run_wave(wave)
+        return len(popped)
+
+    def run_batch(self, queries: Sequence[PPRQuery]) -> List[Recommendation]:
+        """Submit every query first (so full κ-waves form), flush, and gather
+        the results in submission order."""
+        futures = [self.submit(q) for q in queries]
+        self.flush()
+        return [f.result() for f in futures]
+
+    def flush(self) -> int:
+        """Launch everything pending regardless of occupancy; every pending
+        future resolves.  Returns the number of waves launched."""
+        with self._lock:
+            popped = self.scheduler.drain()
+        for wave in popped:
+            self._run_wave(wave)
+        return len(popped)
+
+    def _drive(self, fut: PPRFuture) -> None:
+        """Resolve one pending future synchronously: launch the ready waves,
+        then flush the future's own wave if it is still queued."""
+        self.poll()
+        if fut.done():
+            return
+        key = fut._wave_key
+        if key is not None:
+            with self._lock:
+                popped = self.scheduler.flush_keys({key})
+            for wave in popped:
+                self._run_wave(wave)
+
+    def serve(self, queries: Sequence[PPRQuery]) -> List[Recommendation]:
+        raise NotImplementedError("PPRService.serve() is deprecated in the "
+                                  "reference and not ported: use run_batch()")
+
+    def pump(self, now: Optional[float] = None) -> List[Recommendation]:
+        raise NotImplementedError("PPRService.pump() is deprecated in the "
+                                  "reference and not ported: use poll()")
+
+    def drain(self) -> List[Recommendation]:
+        raise NotImplementedError("PPRService.drain() is deprecated in the "
+                                  "reference and not ported: use flush()")
+
+    def telemetry_summary(self) -> Dict[str, float]:
+        """Telemetry counters (cache_* = submit-path view) plus the LRU's own
+        stats under lru_*."""
+        s = self.telemetry.summary()
+        s.update({f"lru_{k}": v for k, v in self.cache.stats().items()})
+        return s
+
+    # ------------------------------------------------------------------
+    def _run_wave(self, wave: Wave) -> List[Recommendation]:
+        graph_name, pkey, mesh_key, epoch = wave.key
+        rg = self._graphs[graph_name]
+        fmt = None if pkey == FLOAT_KEY else normalize_precision(pkey)
+        t0 = self.time_fn()
+
+        # deadline-aware shed (before any compute is spent): strictly
+        # past-deadline only, so a deadline-flushed wave still serves
+        if any(f.query.deadline is not None for f in wave.items):
+            live: List[PPRFuture] = []
+            live_enq: List[float] = []
+            for col, fut in enumerate(wave.items):
+                q = fut.query
+                enq = (wave.enqueued_at[col]
+                       if col < len(wave.enqueued_at) else t0)
+                if q.deadline is not None and t0 - enq > q.deadline:
+                    self.telemetry.record_admission_wait(max(0.0, t0 - enq))
+                    self.telemetry.record_deadline_shed(graph=q.graph)
+                    fut._reject(QueryRejected(
+                        f"query for vertex {q.vertex} on graph {q.graph!r} "
+                        f"waited {t0 - enq:.4f}s in admission, past its "
+                        f"{q.deadline:.4f}s deadline — dropped at wave "
+                        f"launch rather than served late",
+                        code="deadline-exceeded"))
+                else:
+                    live.append(fut)
+                    live_enq.append(enq)
+            if not live:
+                return []              # the whole wave expired in the queue
+            wave = dataclasses.replace(wave, items=live, enqueued_at=live_enq)
+
+        self._wave_counter += 1
+        wave_id = self._wave_counter
+        for enq in wave.enqueued_at:
+            self.telemetry.record_admission_wait(max(0.0, t0 - enq))
+
+        engine = engine_for(rg.engine_family, fmt is not None)
+        plan = engine.plan(rg, fmt, alpha=self.alpha,
+                           iterations=self.iterations,
+                           convergence=self.convergence,
+                           topk_tile=self.topk_tile)
+
+        queries = [fut.query for fut in wave.items]
+        verts = [int(q.vertex) for q in queries]
+        padded = verts + [verts[0]] * (self.kappa - len(verts))  # pads discarded
+        pers = torch.as_tensor(np.asarray(padded, np.int32), device=rg.device)
+
+        Vmat = plan.initial(pers)
+        t_plan = self.time_fn()
+        self.telemetry.record_stage("plan", t_plan - t0)
+        P, iters_run = plan.iterate(lambda P_: plan.step(Vmat, P_), Vmat)
+        if iters_run < self.iterations:
+            self.telemetry.record_early_exit(self.iterations - iters_run)
+        self.telemetry.record_wave_iterations(iters_run)
+        t_iter = self.time_fn()
+        self.telemetry.record_stage("iterate", t_iter - t_plan)
+
+        k_max = max(q.k for q in queries)
+        idx, vals = plan.topk(P, k_max, pers)
+        idx = idx.cpu().numpy()                     # [κ, k_max]
+        vals = vals.cpu().numpy()
+        scores = (vals.view(np.uint32).astype(np.float64) / plan.scale
+                  if plan.fixed else vals.astype(np.float64))
+        t_topk = self.time_fn()
+        self.telemetry.record_stage("topk", t_topk - t_iter)
+        latency = t_topk - t0
+
+        recs = []
+        with self._lock:
+            for col, fut in enumerate(wave.items):
+                q = fut.query
+                v_top = idx[col, : q.k].copy()
+                s_top = scores[col, : q.k].copy()
+                # the cache keeps its own copies
+                self.cache.put(self._cache_key(q, pkey, epoch=epoch),
+                               (v_top.copy(), s_top.copy()))
+                recs.append(Recommendation(q, v_top, s_top, source="wave",
+                                           wave_id=wave_id, latency_s=latency,
+                                           precision=pkey))
+            t_resolve = self.time_fn()
+            self.telemetry.record_stage("resolve", t_resolve - t_topk)
+            for col, fut in enumerate(wave.items):
+                enq = (wave.enqueued_at[col]
+                       if col < len(wave.enqueued_at) else t0)
+                self.telemetry.record_query_latency(
+                    graph_name, max(0.0, t_resolve - enq))
+            self.telemetry.record_wave(len(wave.items), self.kappa, latency,
+                                       pkey, mesh_key=mesh_key,
+                                       engine=plan.engine, graph=graph_name)
+        # resolve futures last: a waiter must observe the wave's completed
+        # accounting
+        for col, fut in enumerate(wave.items):
+            fut._resolve(recs[col])
+        return recs
