@@ -24,7 +24,23 @@ exits non-zero.  It prints, in order:
    times: CUDA-event medians of each kernel, its plain version, the least
    time the card could take (bytes over 3.35 TB/s), one library call where
    PyTorch has one, and the service's waves/s and queries/s;
-6. a ``{"kernels": [...]}`` JSON line, then the card line, then the
+6. the LM kernels against their plain versions at gemma-2b's shapes:
+   ``flash_attention_gqa`` (B=2, S=4096, d=256; H=8/KV=1 causal, and
+   H=8/KV=4 with gemma3-4b's window of 1024) and ``quantized_matmul``
+   (M of 128 and 4096 against gemma-2b's w_gate/w_up and w_down), each in
+   float32 and bfloat16, with kernel, plain and library times and the bound
+   (bytes over 3.35 TB/s or FLOPs over the type's peak, the larger);
+7. gemma-2b served at full width (18 layers, 2.51 B float32 master
+   parameters drawn on the card from seed 0): (a) in float32, decode equals
+   forward and ``ServingEngine`` equals per-request greedy decoding; (b)
+   layer 0's q/k/v of a B=2, S=2048 prefill through the model's ``_attend``
+   and through ``flash_attention_gqa``, and its MLP through
+   ``quantized_matmul`` (the launches counted here are the kernels' path
+   launches); (c) in bfloat16, ``launch/serve.py``'s defaults timed over
+   several passes (a smoke reading of a host-bound loop): tokens/s, prefill
+   ms, decode-step ms p50/p95; (d) the same at a serving shape: one wave of
+   32 requests, 1,024-token prompts, 128 new tokens each;
+8. a ``{"kernels": [...]}`` JSON line, then the card line, then the
    ``{"ok": true, ...}`` line last.
 
 Everything too long for the end of the output goes to
@@ -47,6 +63,8 @@ V_TILE = 512
 PACKET = 256
 ALPHA = 0.85
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
+PEAK_FLOPS = {"f32": 67e12,        # float32 CUDA cores, NVIDIA data sheet
+              "bf16": 989e12}      # bf16 dense tensor cores
 WARMUP, REPEATS = 3, 15
 
 
@@ -89,6 +107,14 @@ def _time_ms(torch, fn, repeats=REPEATS):
 
 def _bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _roofline(nbytes: float, flops: float, dom: str):
+    """(bound ms, "bytes" or "operations"): the larger of bytes over HBM rate
+    and FLOPs over the peak of the inputs' type."""
+    by_bytes = _bound_ms(nbytes)
+    by_ops = flops / PEAK_FLOPS[dom] * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +480,325 @@ def spmv_path_phase(torch, np, g, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the LM kernels at gemma-2b's shapes
+# ---------------------------------------------------------------------------
+# kernel vs plain: float32 to rtol = atol = 1e-4 (both float32, sums in other
+# orders); bf16 attention to one bf16 ulp, rtol 2^-7 with atol 1e-3 near 0
+# (both compute in float32 from the same bf16 inputs and round the output to
+# bf16 once, so the two may land one ulp apart); the matmul's output is f32
+F32_TOL = dict(rtol=1e-4, atol=1e-4)
+LM_TOL = {"flash_attention": {"f32": F32_TOL, "bf16": dict(rtol=2 ** -7, atol=1e-3)},
+          "quantized_matmul": {"f32": F32_TOL, "bf16": F32_TOL}}
+ATTN_CASES = [  # name, B, S, H, KV, d, causal, window
+    ("gemma-2b", 2, 4096, 8, 1, 256, True, 0),
+    ("gemma3-4b-window", 2, 4096, 8, 4, 256, True, 1024),
+]
+MM_CASES = [  # name, M, K, N  (gemma-2b: w_gate/w_up [2048, 16384], w_down [16384, 2048])
+    ("w_gate-M128", 128, 2048, 16384), ("w_down-M128", 128, 16384, 2048),
+    ("w_gate-M4096", 4096, 2048, 16384), ("w_down-M4096", 4096, 16384, 2048),
+]
+
+
+def _valid_pairs(s: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head over S positions."""
+    if not causal:
+        return s * s if window <= 0 else sum(min(s, i + window) for i in range(s))
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _check_close(torch, name, got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), **tol):
+        _fail(f"{name}: kernel differs from its plain version, max abs err {err} "
+              f"(rtol {tol['rtol']}, atol {tol['atol']})")
+    return err
+
+
+def lm_kernel_phase(torch, dev):
+    import torch.nn.functional as F
+
+    from repro_torch.core.quantization import quantize_weights
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fixed_matmul import quantized_matmul_plain
+    from repro_torch.kernels.flash_attention import (flash_attention_gqa,
+                                                     flash_attention_gqa_plain)
+
+    gen = torch.Generator(dev).manual_seed(6)
+    rows = []
+    for name, b, s, h, kv, d, causal, window in ATTN_CASES:
+        for dom, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
+            k = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dt)
+            v = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dt)
+            kw = dict(causal=causal, window=window)
+            got = flash_attention_gqa(q, k, v, **kw)
+            want = flash_attention_gqa_plain(q, k, v, **kw)
+            err = _check_close(torch, f"flash_attention {name} {dom}", got, want,
+                               LM_TOL["flash_attention"][dom])
+            del want
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if window:
+                pos = torch.arange(s, device=dev)
+                mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+                lib_kw = dict(attn_mask=mask)
+            else:
+                lib_kw = dict(is_causal=True)
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **lib_kw)
+
+            lib_diff = float((library().transpose(1, 2).float() - got.float()).abs().max())
+            es = q.element_size()
+            bound, by = _roofline(2 * q.numel() * es + 2 * k.numel() * es,
+                                  4 * d * b * h * _valid_pairs(s, causal, window), dom)
+            rows.append(dict(
+                kernel="flash_attention", case=name, domain=dom, max_abs_err=err,
+                shape=dict(B=b, S=s, H=h, KV=kv, d=d, causal=causal, window=window),
+                ms=_time_ms(torch, lambda: flash_attention_gqa(q, k, v, **kw)),
+                plain_ms=_time_ms(torch, lambda: flash_attention_gqa_plain(q, k, v, **kw),
+                                  repeats=5),
+                library_ms=_time_ms(torch, library), library="F.scaled_dot_product_attention",
+                library_max_abs_diff=lib_diff, bound_ms=bound, bound_by=by))
+            del q, k, v, got
+    for name, m, kdim, n in MM_CASES:
+        w = torch.randn((kdim, n), generator=gen, device=dev) / kdim ** 0.5
+        qw = quantize_weights(w)
+        del w
+        for dom, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            a = torch.randn((m, kdim), generator=gen, device=dev).to(dt)
+            got = ops.quantized_matmul(a, qw.q, qw.scale)
+            want = quantized_matmul_plain(a, qw.q, qw.scale)
+            err = _check_close(torch, f"quantized_matmul {name} {dom}", got, want,
+                               LM_TOL["quantized_matmul"][dom])
+            bound, by = _roofline(a.numel() * a.element_size() + kdim * n + n * 4 + m * n * 4,
+                                  2 * m * kdim * n, dom)
+            rows.append(dict(
+                kernel="quantized_matmul", case=name, domain=dom, max_abs_err=err,
+                shape=dict(M=m, K=kdim, N=n),
+                ms=_time_ms(torch, lambda: ops.quantized_matmul(a, qw.q, qw.scale)),
+                plain_ms=_time_ms(torch, lambda: quantized_matmul_plain(a, qw.q, qw.scale)),
+                library_ms=_time_ms(torch, lambda: (a @ qw.q.to(a.dtype)) * qw.scale),
+                library="(a @ w_q.to(a.dtype)) * scale", bound_ms=bound, bound_by=by))
+            del a, got, want
+    torch.cuda.empty_cache()
+    for r in rows:
+        print(f"[lm-kernels] {r['kernel']} {r['case']} {r['domain']}: ms {r['ms']:.4f} "
+              f"plain {r['plain_ms']:.4f} library {r['library_ms']:.4f} bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) max abs err {r['max_abs_err']:.3e}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: gemma-2b served at full width
+# ---------------------------------------------------------------------------
+LOGIT_TOL = dict(rtol=2e-3, atol=2e-4)   # the reference's decode-vs-forward tolerance
+# (d): a serving shape — a full wave of 1,024-token prompts, 128 new tokens each
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_PASSES = 32, 1024, 128, 3
+
+
+def _greedy(torch, api, params, prompt, n_new, max_len):
+    """Per-request greedy decode; returns (tokens, top-2 logit gap per step)."""
+    cache = api.init_cache(1, max_len)
+    logits, cache = api.prefill(params, {"tokens": prompt[None]}, cache)
+    toks, gaps, pos = [], [], prompt.shape[0]
+    for _ in range(n_new):
+        top2 = torch.topk(logits[0], 2).values
+        toks.append(int(logits[0].argmax()))
+        gaps.append(float(top2[0] - top2[1]))
+        logits, cache = api.decode_step(params, torch.tensor([[toks[-1]]]), pos, cache)
+        pos += 1
+    return toks, gaps
+
+
+def lm_serving_phase(torch, np, dev, passes=5):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantization import quantize_weights
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import _attend, _project_qkv
+    from repro_torch.models.common import act_fn, norm
+    from repro_torch.models.moe import mlp
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("gemma-2b")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    api32 = build_model(cfg32, device=dev)
+    t0 = time.perf_counter()
+    params = api32.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[lm] gemma-2b: {cfg.num_layers} layers, {n_params} parameters "
+          f"(cfg.param_count() {cfg.param_count()}), "
+          f"{n_params * 4 / 1e9:.2f} GB float32, drawn in {init_s:.2f} s")
+    out = dict(layers=cfg.num_layers, parameters=n_params, init_s=init_s)
+    rng = np.random.default_rng(12)
+
+    # (a) float32: decode == forward, engine == per-request greedy
+    b, s = 2, 16
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    full = api32.forward(params, {"tokens": toks})
+    cache = api32.init_cache(b, 64)
+    lp, cache = api32.prefill(params, {"tokens": toks[:, :s]}, cache)
+    ld, cache = api32.decode_step(params, toks[:, s:], s, cache)
+    errs = [float((lp - full[:, s - 1]).abs().max()), float((ld - full[:, s]).abs().max())]
+    if not (torch.allclose(lp, full[:, s - 1], **LOGIT_TOL)
+            and torch.allclose(ld, full[:, s], **LOGIT_TOL)):
+        _fail(f"gemma-2b f32: prefill/decode logits differ from forward by {errs} "
+              f"(rtol {LOGIT_TOL['rtol']}, atol {LOGIT_TOL['atol']})")
+    prompts = [rng.integers(0, cfg.vocab_size, 8).astype(np.int32) for _ in range(3)]
+    served = ServingEngine(api32, params, batch_size=3, max_len=64).serve(
+        [Request(uid=i, prompt=p, max_new_tokens=5) for i, p in enumerate(prompts)])
+    min_gap = float("inf")
+    for i, p in enumerate(prompts):
+        manual, gaps = _greedy(torch, api32, params, p, 5, 64)
+        min_gap = min(min_gap, min(gaps))
+        for t, (x, y) in enumerate(zip(served[i], manual)):
+            if x != y:
+                print(f"[lm] request {i} step {t}: engine {x} vs greedy {y}, "
+                      f"top-2 logit gap {gaps[t]:.3e}")
+                if gaps[t] > LOGIT_TOL["atol"]:
+                    _fail("ServingEngine tokens differ from per-request greedy")
+                break     # a tie within the logit tolerance; later tokens may differ
+    print(f"[lm] (a) f32: prefill/decode vs forward max abs err {errs[0]:.3e}/"
+          f"{errs[1]:.3e}; engine == per-request greedy (smallest top-2 gap "
+          f"{min_gap:.3e})")
+    out.update(decode_vs_forward_max_abs_err=errs, greedy_min_top2_gap=min_gap)
+    del full, cache
+
+    # (b): layer 0 of a B=2, S=2048 prefill through the kernels
+    s = 2048
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, s)), device=dev)
+    layer = params.layers[0]
+    x = norm(params.embed_tokens(toks, cfg32), layer["ln1"], cfg32.norm)
+    q, k, v = _project_qkv(x, layer["attn"], cfg32, torch.arange(s, device=dev)[None])
+    pos = torch.arange(s, device=dev)
+    ref = _attend(q, k, v, pos, pos, cfg32, causal=True)
+    qw = {n: quantize_weights(layer["mlp"][n]) for n in ("w_gate", "w_up", "w_down")}
+    x2 = x.reshape(-1, cfg.d_model)
+    reset_launch_counts()
+    att = flash_attention_gqa(q, k, v, causal=True)
+
+    def qmm(a, n):
+        return ops.quantized_matmul(a, qw[n].q, qw[n].scale)
+
+    m = qmm(act_fn(qmm(x2, "w_gate"), cfg32.act) * qmm(x2, "w_up"), "w_down")
+    torch.cuda.synchronize()
+    path_counts = launch_counts()
+    for name in ("flash_attention", "quantized_matmul"):
+        if path_counts[name] == 0:
+            _fail(f"the LM path launched {name} no time")
+    att_err = float((att - ref).abs().max())
+    if not torch.allclose(att, ref, rtol=2e-4, atol=2e-4):
+        _fail(f"flash_attention_gqa differs from the model's _attend on gemma-2b "
+              f"layer 0: max abs err {att_err} (rtol = atol = 2e-4)")
+    m_ref = mlp(x, layer["mlp"], cfg32).reshape(-1, cfg.d_model)
+    mlp_rel = float((m - m_ref).norm() / m_ref.norm())
+    if not (torch.isfinite(m).all() and mlp_rel < 0.1):
+        _fail(f"int8 MLP of layer 0 is {mlp_rel:.3e} (relative L2) from the f32 MLP")
+    print(f"[lm] (b) layer 0, B=2 S=2048: flash_attention_gqa vs _attend max abs err "
+          f"{att_err:.3e}; int8 MLP vs f32 MLP relative L2 {mlp_rel:.3e} "
+          f"(truncating per-channel int8); path launches {path_counts}")
+    out.update(attend_max_abs_err=att_err, int8_mlp_rel_l2=mlp_rel, launches=path_counts)
+    del x, q, k, v, ref, att, m, m_ref, qw, x2
+    torch.cuda.empty_cache()
+
+    # (c) bfloat16: launch/serve.py's defaults, timed (a smoke reading: at 96
+    # tokens a pass the host's dispatch sets the rate)
+    api16 = build_model(cfg, device=dev)
+    prefill_ms, decode_ms = [], []
+
+    def timed(fn, sink):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t) * 1e3)
+            return r
+        return run
+
+    api_t = api16._replace(prefill=timed(api16.prefill, prefill_ms),
+                           decode_step=timed(api16.decode_step, decode_ms))
+    engine = ServingEngine(api_t, params, batch_size=4, max_len=128)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, 16).astype(np.int32),
+                    max_new_tokens=8) for i in range(12)]
+    engine.serve(reqs)                                  # warm-up
+    prefill_ms.clear()
+    decode_ms.clear()
+    times, n_tok = [], 0
+    for _ in range(passes):
+        t = time.perf_counter()
+        res = engine.serve(reqs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        n_tok = sum(len(r) for r in res.values())
+        if n_tok != 96 or not all(0 <= x < cfg.padded_vocab for r in res.values() for x in r):
+            _fail("bf16 serving did not return 8 in-vocabulary tokens per request")
+    per = [n_tok / t for t in times]
+    out.update(bf16_tokens_per_s=n_tok * passes / sum(times),
+               bf16_tokens_per_s_pass_range=[min(per), max(per)],
+               bf16_pass_s=times, prefill_ms_p50=statistics.median(prefill_ms),
+               decode_step_ms_p50=float(np.percentile(decode_ms, 50)),
+               decode_step_ms_p95=float(np.percentile(decode_ms, 95)),
+               prefill_calls=len(prefill_ms), decode_steps=len(decode_ms),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[lm] (c) bf16 serve (smoke reading): 12 requests, batch 4, prompt 16, 8 new tokens, "
+          f"{passes} timed passes: {out['bf16_tokens_per_s']:.1f} tokens/s (passes "
+          f"{min(per):.1f}-{max(per):.1f}); prefill p50 {out['prefill_ms_p50']:.2f} ms "
+          f"(B=4, S=16); decode step p50/p95 {out['decode_step_ms_p50']:.2f}/"
+          f"{out['decode_step_ms_p95']:.2f} ms; peak memory {out['peak_mem_gb']:.2f} GB")
+    del engine
+
+    # (d) bfloat16 at a serving shape: one wave of SERVE_BATCH requests with
+    # SERVE_PROMPT-token prompts and SERVE_NEW new tokens each, timed
+    b, s, n_new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    prefill_ms.clear()
+    decode_ms.clear()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(api_t, params, batch_size=b, max_len=s + n_new)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, s).astype(np.int32),
+                    max_new_tokens=n_new) for i in range(b)]
+    engine.serve([dataclasses.replace(r, max_new_tokens=4) for r in reqs])  # warm-up
+    prefill_ms.clear()
+    decode_ms.clear()
+    times = []
+    for _ in range(SERVE_PASSES):
+        t = time.perf_counter()
+        res = engine.serve(reqs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if (sum(len(r) for r in res.values()) != b * n_new
+                or not all(0 <= x < cfg.padded_vocab for r in res.values() for x in r)):
+            _fail(f"bf16 serving at B={b} did not return {n_new} in-vocabulary "
+                  f"tokens per request")
+    per = [b * n_new / t for t in times]
+    out["serving_shape"] = dict(
+        batch=b, prompt=s, new_tokens=n_new, max_len=s + n_new, passes=SERVE_PASSES,
+        tokens_per_s=b * n_new * SERVE_PASSES / sum(times),
+        tokens_per_s_pass_range=[min(per), max(per)], pass_s=times,
+        prefill_ms=prefill_ms[:], decode_step_ms_p50=float(np.percentile(decode_ms, 50)),
+        decode_step_ms_p95=float(np.percentile(decode_ms, 95)),
+        decode_steps=len(decode_ms), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    sv = out["serving_shape"]
+    print(f"[lm] (d) bf16 serve at a serving shape: {b} requests, batch {b}, prompt {s}, "
+          f"{n_new} new tokens, {SERVE_PASSES} timed passes: {sv['tokens_per_s']:.1f} "
+          f"tokens/s (passes {min(per):.1f}-{max(per):.1f}); prefill (B={b}, S={s}) "
+          f"{statistics.median(prefill_ms):.2f} ms p50; decode step p50/p95 "
+          f"{sv['decode_step_ms_p50']:.2f}/{sv['decode_step_ms_p95']:.2f} ms; "
+          f"peak memory {sv['peak_mem_gb']:.2f} GB")
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     try:
         import torch
@@ -475,6 +820,9 @@ def main() -> int:
 
     card = _card_line()
     dev = torch.device("cuda")
+    # float32 products in full float32 for every comparison (the defaults, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(f"[card] {card}")
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -494,6 +842,8 @@ def main() -> int:
     service = service_phase(torch, np, graphs["gnp_2e5"], dev)
     early = early_exit_phase(torch, np, graphs["pl_2e5"], dev)
     spmv_counts = spmv_path_phase(torch, np, graphs["gnp_2e5"], dev)
+    lm_rows = lm_kernel_phase(torch, dev)
+    lm = lm_serving_phase(torch, np, dev)
 
     print("[times] kernel graph domain: ms plain_ms bound_ms library_ms "
           "unpadded_bound_ms pad_overhead")
@@ -535,13 +885,29 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
             unpadded_bound_ms=r["unpadded_bound_ms"], pad_overhead=r["pad_overhead"],
+            launches_source=("phase 5: core.spmv.spmv_kernel" if r["kernel"] == "coo_spmv"
+                             else "phase 3: PPRService served path"),
+            parity="pass"))
+    lm_sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                      "src/repro/kernels/flash_attention.py:86"),
+                  "quantized_matmul": ("src/repro_torch/csrc/fixed_matmul.cu",
+                                       "src/repro/kernels/fixed_matmul.py:42")}
+    for r in lm_rows:
+        src, repl = lm_sources[r["kernel"]]
+        kernels.append(dict(
+            name=f"{r['kernel']}[{r['domain']},{r['case']}]", route="cuda", source=src,
+            replaces=repl, launches=lm["launches"][r["kernel"]],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            launches_source="phase 7(b): gemma-2b layer-0 attention and int8 MLP "
+                            "through the kernels' entry points, composed by this script",
             parity="pass"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, kernel_rows=rows, service=service, early_exit=early,
-        kernels=kernels), indent=1))
+        lm_kernel_rows=lm_rows, lm_serving=lm, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

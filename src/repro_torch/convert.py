@@ -1,17 +1,22 @@
 """Carry state between the reference package and the port as numpy arrays.
 
 The port never imports the reference.  Tests and tools that hold both hand
-graphs and raw fixed-point states across with these, so that both packages
-compute on the same bits.
+graphs, raw fixed-point states and LM parameters across with these, so that
+both packages compute on the same bits.
 """
 from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coo import COOGraph
+from repro_torch.models.common import find_segments
+from repro_torch.models.transformer import Transformer
 
-__all__ = ["graph_from_arrays", "raw_to_torch", "raw_to_numpy"]
+__all__ = ["graph_from_arrays", "raw_to_torch", "raw_to_numpy", "lm_params_from_jax"]
 
 
 def graph_from_arrays(x, y, val, dangling, num_vertices: int) -> COOGraph:
@@ -33,3 +38,32 @@ def raw_to_torch(raw: np.ndarray, device="cpu") -> torch.Tensor:
 def raw_to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 tensor of raw bits → np.uint32 array of the same bits."""
     return t.detach().cpu().numpy().view(np.uint32)
+
+
+def _leaves(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, f"{prefix}{key}.")
+        else:
+            yield prefix + key, val
+
+
+def lm_params_from_jax(params_np: Dict[str, Any], cfg: ModelConfig) -> Transformer:
+    """The port's ``Transformer``, on the CPU, from the reference's parameter
+    pytree (leaves as numpy arrays; dense family).
+
+    The reference stacks each pattern segment's layers as
+    ``params["segments"][s][key][rep, j]``; layer ``i`` of the port is the
+    ``i``-th (segment, rep, j) in order.  Raises on any missing or extra key."""
+    state = dict(_leaves({k: v for k, v in params_np.items() if k != "segments"}))
+    i = 0
+    for seg, (group, reps) in zip(params_np["segments"], find_segments(cfg.layer_pattern)):
+        for rep in range(reps):
+            for j in range(len(group)):
+                for name, leaf in _leaves(seg):
+                    state[f"layers.{i}.{name}"] = np.asarray(leaf)[rep, j]
+                i += 1
+    model = Transformer(cfg, device="meta")
+    model.load_state_dict({k: torch.as_tensor(np.array(v, np.float32))
+                           for k, v in state.items()}, strict=True, assign=True)
+    return model.requires_grad_(False)

@@ -4,6 +4,10 @@
               and bit-exact fixed point.
 - fused_ppr:  one whole eq. (1) iteration (csrc/fused_ppr.cu): dangling-mass
               fold, SpMV, combine and residual.
+- fixed_matmul:    reduced-precision serving matmul, f32/bf16 activations x
+                   int8 per-channel weights (csrc/fixed_matmul.cu).
+- flash_attention: blocked online-softmax attention for the LM stack, causal
+                   / local-window / GQA (csrc/flash_attention.cu).
 
 Every kernel has its plain PyTorch version beside it: a wrapper runs the
 plain version for CPU tensors and launches the kernel (or raises) for CUDA
@@ -12,6 +16,8 @@ tensors.  ``ops.py`` holds the public wrappers; ``ref.py`` the oracles;
 """
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.coo_spmv import coo_spmv_kernel
+from repro_torch.kernels.fixed_matmul import quantized_matmul_kernel
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_gqa
 from repro_torch.kernels.fused_ppr import dangling_mass, fused_ppr_iteration
 
 #: every kernel wrapper, by name; each carries a ``launches`` count
@@ -19,6 +25,8 @@ KERNEL_WRAPPERS = {
     "coo_spmv": coo_spmv_kernel,
     "fused_ppr_dangling_mass": dangling_mass,
     "fused_ppr_iteration": fused_ppr_iteration,
+    "quantized_matmul": quantized_matmul_kernel,
+    "flash_attention": flash_attention_gqa,
 }
 
 
@@ -33,5 +41,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["ops", "ref", "coo_spmv_kernel", "fused_ppr_iteration",
-           "dangling_mass", "KERNEL_WRAPPERS", "launch_counts",
+           "dangling_mass", "quantized_matmul_kernel", "flash_attention",
+           "flash_attention_gqa", "KERNEL_WRAPPERS", "launch_counts",
            "reset_launch_counts"]

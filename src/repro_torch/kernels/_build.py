@@ -11,7 +11,8 @@ source rebuilds and an unchanged one loads what an earlier run built.
 Nothing is built when a module is imported: the first CUDA launch of a kernel
 builds it, and ``build_all`` builds every source at once, one ``nvcc`` per
 source, all started together.  ptxas' register and shared-memory report lands
-next to each library as ``<name>-<hash>.log``.
+next to each library as ``<name>-<hash>.log``.  ``check_operand`` is the one
+operand check every kernel wrapper makes before a launch.
 """
 from __future__ import annotations
 
@@ -24,12 +25,13 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
-__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "build_log", "load"]
+__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "build_log", "check_operand",
+           "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <repo>/build/repro_torch (this file is <repo>/src/repro_torch/kernels/_build.py)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("coo_spmv", "fused_ppr")
+SOURCES = ("coo_spmv", "fused_ppr", "fixed_matmul", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,3 +120,21 @@ def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
                 declare(lib)
                 _libs[name] = lib
     return lib
+
+
+def check_operand(t, name: str, dtype, shape=None, *, dims: Optional[int] = None,
+                  align: int = 1) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` whose data
+    is ``align``-byte aligned, of ``shape`` or of ``dims`` dimensions when given."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if dims is not None and t.dim() != dims:
+        raise ValueError(f"{name} must be a {dims}-d tensor, got {t.dim()}-d")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")

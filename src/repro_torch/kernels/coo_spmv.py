@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.fixed_point import QFormat
 from repro_torch.core.spmv import spmv_fixed, spmv_float
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import check_operand
 
 __all__ = ["coo_spmv_kernel", "coo_spmv_plain", "launch_geometry"]
 
@@ -66,17 +67,6 @@ def coo_spmv_plain(x_local, y_local, val, p, dst_start, packet_src, *,
     return spmv_fixed(xg, yg, val.reshape(-1), p, rows, QFormat(1, frac_bits))
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _declare(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.coo_spmv_launch.argtypes = [vp] * 7 + [i] * 7 + [vp]
@@ -107,12 +97,12 @@ def coo_spmv_kernel(x_local, y_local, val, p, dst_start, packet_src, *,
         raise ValueError(f"p must be [n_src*v_tile, K], got {tuple(p.shape)}")
     n_packets, k = int(packet_src.shape[0]), int(p.shape[1])
     dom = torch.int32 if fixed else torch.float32
-    _check(p, "p", dom)
-    _check(val, "val", dom, (n_packets, packet))
-    _check(x_local, "x_local", torch.int16, (n_packets, packet))
-    _check(y_local, "y_local", torch.int16, (n_packets, packet))
-    _check(dst_start, "dst_start", torch.int32, (n_dst + 1,))
-    _check(packet_src, "packet_src", torch.int32)
+    check_operand(p, "p", dom)
+    check_operand(val, "val", dom, (n_packets, packet))
+    check_operand(x_local, "x_local", torch.int16, (n_packets, packet))
+    check_operand(y_local, "y_local", torch.int16, (n_packets, packet))
+    check_operand(dst_start, "dst_start", torch.int32, (n_dst + 1,))
+    check_operand(packet_src, "packet_src", torch.int32)
     threads, smem = launch_geometry(v_tile, k)
     out = torch.empty((n_dst * v_tile, k), dtype=p.dtype, device=p.device)
     if n_dst == 0:

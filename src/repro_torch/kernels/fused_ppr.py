@@ -39,7 +39,8 @@ from repro_torch.core.fixed_point import QFormat, widen_u32, wrap_u32
 from repro_torch.core.ppr import _fixed_combine, _fixed_consts, _float_combine
 from repro_torch.core.spmv import spmv_fixed, spmv_float
 from repro_torch.kernels import _build
-from repro_torch.kernels.coo_spmv import _check, launch_geometry
+from repro_torch.kernels._build import check_operand
+from repro_torch.kernels.coo_spmv import launch_geometry
 
 __all__ = [
     "FusedLayout", "build_fused_layout", "quantize_layout_rows",
@@ -271,8 +272,8 @@ def dangling_mass(p: torch.Tensor, dang_idx: torch.Tensor, *,
     if p.device.type == "cpu":
         return dangling_mass_plain(p, dang_idx, fixed=fixed)
     dom = torch.int32 if fixed else torch.float32
-    _check(p, "p", dom)
-    _check(dang_idx, "dang_idx", torch.int32)
+    check_operand(p, "p", dom)
+    check_operand(dang_idx, "dang_idx", torch.int32)
     if p.dim() != 2:
         raise ValueError(f"p must be [V, K], got {tuple(p.shape)}")
     k = int(p.shape[1])
@@ -357,13 +358,13 @@ def fused_ppr_iteration(row_off, row_src, x2, y2, val2, dang_idx, vmat, p, *,
         raise ValueError(f"p must be [{num_vertices}, K], got {tuple(p.shape)}")
     k = int(p.shape[1])
     n_rows = int(x2.shape[0])
-    _check(p, "p", dom)
-    _check(vmat, "vmat", dom, p.shape)
-    _check(val2, "val2", dom, (n_rows, packet))
-    _check(x2, "x2", torch.int16, (n_rows, packet))
-    _check(y2, "y2", torch.int16, (n_rows, packet))
-    _check(row_off, "row_off", torch.int32, (n_blk + 1,))
-    _check(row_src, "row_src", torch.int32)
+    check_operand(p, "p", dom)
+    check_operand(vmat, "vmat", dom, p.shape)
+    check_operand(val2, "val2", dom, (n_rows, packet))
+    check_operand(x2, "x2", torch.int16, (n_rows, packet))
+    check_operand(y2, "y2", torch.int16, (n_rows, packet))
+    check_operand(row_off, "row_off", torch.int32, (n_blk + 1,))
+    check_operand(row_src, "row_src", torch.int32)
     if row_src.shape[0] > n_rows:
         raise ValueError("row_src names more rows than x2 holds")
     threads, smem = launch_geometry(v_tile, k, extra_words=3 * k)

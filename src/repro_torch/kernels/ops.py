@@ -2,8 +2,8 @@
 
 ``coo_spmv`` does the host-side packet→block metadata prep and the device
 upload of the packed stream (once per graph, device and format, cached on the
-``BlockedCOO``) and the empty-dst-block masking.  ``quantized_matmul`` comes
-with the LM-stack slice.
+``BlockedCOO``) and the empty-dst-block masking.  ``quantized_matmul`` is the
+reduced-precision serving matmul (``fixed_matmul.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.coo import BlockedCOO, quantize_values
 from repro_torch.core.fixed_point import QFormat
 from repro_torch.kernels.coo_spmv import coo_spmv_kernel
+from repro_torch.kernels.fixed_matmul import quantized_matmul_kernel
 
 
 def packet_metadata(blocked: BlockedCOO):
@@ -97,3 +98,9 @@ def pad_p_for_blocks(p: torch.Tensor, blocked: BlockedCOO) -> torch.Tensor:
     if pad == 0:
         return p
     return torch.cat([p, p.new_zeros((pad, p.shape[1]))], dim=0)
+
+
+def quantized_matmul(a, w_q, scale, **tiles) -> torch.Tensor:
+    """Reduced-precision serving matmul (see fixed_matmul.py); ``tiles`` are
+    the reference's ``bm``/``bn``/``bk`` divisibility contract."""
+    return quantized_matmul_kernel(a, w_q, scale, **tiles)

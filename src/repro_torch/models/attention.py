@@ -1,0 +1,162 @@
+"""Attention: GQA/MQA global attention with softcap and qk-norm, query-chunked
+prefill and cached decode (counterpart of ``repro.models.attention``).
+
+The global-attention path only: local windows over a sliced K/V, the rolling
+window cache and cross-attention raise ``NotImplementedError`` naming their
+slice.  ``_attend`` keeps the reference's einsum form (scores in the input
+dtype, softmax in float32); the model path does not call the flash kernel,
+as the reference's does not call its Pallas one.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import dense_init, rmsnorm, rope, softcap
+
+__all__ = ["Attention", "attention", "prefill_kv", "decode_attention",
+           "decode_attention_windowed", "cross_attention_cached"]
+
+
+class Attention(nn.ParameterDict):
+    """wq [D, H·hd], wk/wv [D, KV·hd], wo [H·hd, D] (+ q_norm/k_norm), float32
+    masters drawn as ``dense_init``; read by name like the reference's dict."""
+
+    def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
+                 device=None):
+        d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        p = {
+            "wq": dense_init((d, h * hd), d, generator, device),
+            "wk": dense_init((d, kv * hd), d, generator, device),
+            "wv": dense_init((d, kv * hd), d, generator, device),
+            "wo": dense_init((h * hd, d), h * hd, generator, device),
+        }
+        if cfg.use_qk_norm:
+            p["q_norm"] = torch.ones((hd,), device=device)
+            p["k_norm"] = torch.ones((hd,), device=device)
+        super().__init__({k: nn.Parameter(t, requires_grad=False) for k, t in p.items()})
+
+
+def _project_qkv(x, p, cfg: ModelConfig, positions):
+    """x [B,S,D] → q [B,S,H,hd], k/v [B,S,KV,hd] with rope/qk-norm applied."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, kv, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, kv, hd)
+    if cfg.use_qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    if not cfg.learned_pos:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attend(q, k, v, qpos, kpos, cfg: ModelConfig, causal: bool) -> torch.Tensor:
+    """Masked GQA attention.  q [B,qc,H,hd]; k/v [B,Skv,KV,hd];
+    qpos [qc], kpos [Skv] global positions (mask = causal)."""
+    b, qc, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, qc, kvh, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(torch.float32)
+    scores = scores / math.sqrt(hd)
+    scores = softcap(scores, cfg.attn_softcap)
+    mask = torch.ones((qc, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    mask &= kpos[None, :] >= 0  # padding slots in sliced windows carry kpos=-1
+    scores = torch.where(mask[None, None, None], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    return out.reshape(b, qc, h, hd)
+
+
+def _attend_window(q_chunk, k, v, chunk_start, cfg, causal, window):
+    raise NotImplementedError(
+        f"local-window attention (window={window} < sequence) over sliced K/V "
+        f"is not ported yet: it comes with the windowed-attention slice")
+
+
+def attention(x, p, cfg: ModelConfig, *, window: int, causal: bool = True,
+              chunk: int = 512, return_kv: bool = False):
+    """Training/prefill attention over a full sequence.  x [B,S,D] → [B,S,D].
+
+    Queries go in chunks of the largest divisor of S that is ≤ ``chunk``, as
+    in the reference (there a scan, here a loop)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    kpos_full = torch.arange(k.shape[1], device=x.device)
+    qc = min(chunk, s)
+    while s % qc:       # largest divisor of S ≤ chunk (e.g. 1500 → 500)
+        qc -= 1
+    outs = []
+    for start in range(0, s, qc):
+        qi = q[:, start:start + qc]
+        if window and window < s:
+            outs.append(_attend_window(qi, k, v, start, cfg, causal, window))
+        else:
+            qpos = start + torch.arange(qc, device=x.device)
+            outs.append(_attend(qi, k, v, qpos, kpos_full, cfg, causal))
+    out = torch.cat(outs, dim=1).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    y = out @ p["wo"].to(x.dtype)
+    if return_kv:
+        return y, k, v
+    return y
+
+
+# ---------------------------------------------------------------------------
+# cached decode
+# ---------------------------------------------------------------------------
+def prefill_kv(x, p, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project K/V for the whole prompt (cache fill)."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    _, k, v = _project_qkv(x, p, cfg, positions)
+    return k, v
+
+
+def decode_attention(x, p, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
+                     window: int):
+    """One-token attention against the cache; returns (out, cache_k, cache_v).
+
+    x [B, 1, D]; cache_k/v [B, Smax, KV, hd].  The new K/V row is written
+    into the caches in place (the reference returns updated copies)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _project_qkv(x, p, cfg, positions)
+    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
+    smax = cache_k.shape[1]
+    kpos = torch.arange(smax, device=x.device)
+    valid = kpos <= pos
+    if window:
+        valid &= kpos > pos - window
+    kvh, hd, h = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    g = h // kvh
+    qg = q.reshape(b, 1, kvh, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                          cache_k.to(q.dtype)).to(torch.float32)
+    scores = softcap(scores / math.sqrt(hd), cfg.attn_softcap)
+    scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w,
+                       cache_v.to(q.dtype)).reshape(b, 1, h * hd)
+    return out @ p["wo"].to(x.dtype), cache_k, cache_v
+
+
+def decode_attention_windowed(x, p, cfg, cache_k, cache_v, pos, *, window):
+    raise NotImplementedError(
+        "decode against a rolling window buffer is not ported yet: it comes "
+        "with the windowed-attention slice")
+
+
+def cross_attention_cached(x, p, cfg, cross_k, cross_v):
+    raise NotImplementedError(
+        "cross-attention against encoder K/V is not ported yet: it comes with "
+        "the encdec (whisper) slice")

@@ -16,8 +16,14 @@ from repro_torch.core import coo as tcoo  # noqa: E402
 from repro_torch.core import fixed_point as tfp  # noqa: E402
 from repro_torch.core.coo import COOGraph  # noqa: E402
 from repro_torch.graphs import erdos_renyi  # noqa: E402
+from repro_torch.core.quantization import quantize_weights  # noqa: E402
 from repro_torch.kernels import fused_ppr as tfused  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.fixed_matmul import quantized_matmul_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_gqa,
+    flash_attention_gqa_plain,
+)
 
 ALPHA = 0.85
 V_PRIME = 641
@@ -83,3 +89,56 @@ def test_cuda_fused_iteration_matches_plain(cuda, fmt):
         assert torch.equal(P_k.cpu(), P_p)
         assert torch.equal(res_k[1].cpu(), res_p[1])
     torch.testing.assert_close(res_k.cpu()[[0, 2]], res_p[[0, 2]], rtol=1e-4, atol=1e-6)
+
+
+# flash attention: float32 to 1e-4 (the kernel and the plain version sum in
+# other orders, both in float32); bfloat16 to one bf16 ulp, rtol 2^-7 with
+# atol 1e-3 near 0 (both compute in float32 from the same bf16 inputs and
+# round the output to bf16 once, so the two may land one ulp apart)
+ATTN_TOL = {"f32": dict(rtol=1e-4, atol=1e-4), "bf16": dict(rtol=2 ** -7, atol=1e-3)}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,window", [
+    (2, 128, 128, 4, 1, 64, True, 0),       # MQA, causal
+    (1, 256, 256, 8, 4, 256, True, 64),     # GQA, gemma-2b/3 head_dim, window
+    (1, 128, 256, 2, 2, 32, False, 0),      # cross-attention-like
+    (1, 100, 70, 2, 1, 128, True, 0),       # ragged tiles
+    (2, 256, 128, 2, 1, 32, False, 64),     # rows 191-255 fully masked
+], ids=["mqa-causal", "gqa-window", "noncausal", "ragged", "fully-masked"])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, b, sq, skv, h, kvh, d,
+                                            causal, window):
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(sq + skv + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dt)
+               for shape in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d)))
+    before = flash_attention_gqa.launches
+    got = flash_attention_gqa(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal,
+                              window=window, bq=1, bk=1)
+    torch.cuda.synchronize()
+    assert flash_attention_gqa.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = flash_attention_gqa_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.cpu().float(), want.float(), **ATTN_TOL[dtype])
+    if window and not causal:
+        assert torch.equal(got.cpu()[:, 191:], torch.zeros_like(got.cpu()[:, 191:]))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 512), (128, 256, 128),
+                                   (72, 136, 200)])
+def test_cuda_quantized_matmul_matches_plain(cuda, dtype, m, k, n):
+    """The reference's three shapes and one that no tile divides; rtol = atol
+    = 1e-4 (float32 accumulation in another order)."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(m + n)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dt)
+    qt = quantize_weights(torch.from_numpy((rng.standard_normal((k, n)) * 0.05)
+                                           .astype(np.float32)))
+    tiles = dict(bm=8, bn=8, bk=8)
+    before = tops.quantized_matmul_kernel.launches
+    got = tops.quantized_matmul(a.to(cuda), qt.q.to(cuda), qt.scale.to(cuda), **tiles)
+    torch.cuda.synchronize()
+    assert tops.quantized_matmul_kernel.launches == before + 1
+    torch.testing.assert_close(got.cpu(), quantized_matmul_plain(a, qt.q, qt.scale),
+                               rtol=1e-4, atol=1e-4)
