@@ -9,21 +9,29 @@ repo's Python dependencies.  The script imports only ``repro_torch`` (from
 exits non-zero.  It prints, in order:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions and
-   the time to build the kernels from ``src/repro_torch/csrc``;
+   the time to build the kernels from ``src/repro_torch/csrc``, and the
+   device operations one call of each LM kernel runs (small inputs);
 2. kernel parity: each kernel wrapper on the card against its plain PyTorch
    version on the same inputs, on the paper's ``gnp_2e5`` (dangling vertices
    live) and ``pl_2e5`` graphs at K=16, v_tile=512, packet=256, in float32
-   and Q1.25, with the layouts' padding factors;
+   and Q1.25; the host layouts' padding factors, the dst stream's slices
+   and CTAs, and its device bytes against those of the padded packet layouts;
 3. the served path: ``PPRService(kappa=16, iterations=10, device="cuda")``
    on ``gnp_2e5`` with ``engine="fused"`` and ``engine="single"``, 64 queries
    at precision 26 and 32 in float32 each, compared with each other and with
    the scipy float64 oracle; the fused kernels' launch counts over the run;
+   the host time of a served ``fused_ppr_iteration`` call, and the device's
+   busy share of three fused passes under ``torch.profiler``;
 4. early exit on ``pl_2e5`` (``early_exit``, Q1.19, budgets 40 and 120):
    fused and single return identical states after identical iteration counts;
 5. the SpMV path (``core.spmv.spmv_kernel``) with its launch count, and the
-   times: CUDA-event medians of each kernel, its plain version, the least
-   time the card could take (bytes over 3.35 TB/s), one library call where
-   PyTorch has one, and the service's waves/s and queries/s;
+   times: CUDA-event medians of one call of each kernel as a caller that
+   waits sees it (``ms``, the host's enqueue included, as every earlier
+   version of this script measured), of its plain version and of one library
+   call where PyTorch has one; beside them ``device_ms``, the same calls
+   with the host's enqueue hidden behind a queued sleep; the least time the
+   card could take (bytes over 3.35 TB/s), the device operations one call
+   runs (``torch.profiler``), and the service's waves/s and queries/s;
 6. the LM kernels against their plain versions at gemma-2b's shapes:
    ``flash_attention_gqa`` (B=2, S=4096, d=256; H=8/KV=1 causal, and
    H=8/KV=4 with gemma3-4b's window of 1024) and ``quantized_matmul``
@@ -88,8 +96,13 @@ def _graphs():
             "pl_2e5": holme_kim_powerlaw(200_000, m=10, seed=5)}
 
 
-def _time_ms(torch, fn, repeats=REPEATS):
-    """Median CUDA-event time of ``fn()`` in ms, after warm-up."""
+def _time_ms(torch, fn, repeats=REPEATS, hide_host=False):
+    """Median CUDA-event time of ``fn()`` in ms, after warm-up: what a caller
+    that waits sees, the host's enqueue included.
+
+    With ``hide_host`` a ``torch.cuda._sleep`` of ~0.5 ms is queued first, so
+    the host has enqueued the call's launches before the start event runs:
+    the time is the device's, from the first launch to the end of the last."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -97,6 +110,8 @@ def _time_ms(torch, fn, repeats=REPEATS):
     for _ in range(repeats):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(1_000_000)
         a.record()
         fn()
         b.record()
@@ -135,6 +150,98 @@ def _inputs(np, g, fmt, seed):
     return raw.view(np.int32), (vm * fmt.scale).astype(np.uint32).view(np.int32)
 
 
+def _short(name: str) -> str:
+    """A kernel's name without its return type, namespaces and arguments."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("<")[0].split("(")[0].split("::")[-1].strip() or name
+
+
+def _on_device(torch, e) -> bool:
+    """A profiler event that ran on the card (a kernel, memset or copy), not
+    a user range mirrored onto the device's timeline."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
+def _device_ops(torch, fn, calls=3, tries=3):
+    """(device operations one call of ``fn`` runs — kernels, memsets, copies —,
+    the device ms one call spends in each, by name, and the profiles taken),
+    from ``torch.profiler`` over ``calls`` calls after one warm-up step of the
+    profiler, whose records its schedule discards.  The count is exact: a
+    profile counts only if every name's device events number a whole
+    multiple of ``calls``, so that they total calls x n; else it is taken
+    again, up to ``tries`` times, and the count is None if none did."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        ready = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda prof: ready.append(prof.events())) as prof:
+            for _ in range(2):                  # the warm-up step, then the active one
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        spans = {}
+        for e in (ready[0] if ready else []):
+            if _on_device(torch, e):
+                spans.setdefault(_short(e.name), []).append(
+                    (e.time_range.end - e.time_range.start) / 1e3)
+        if spans and all(len(t) % calls == 0 for t in spans.values()):
+            return (sum(len(t) for t in spans.values()) // calls,
+                    {name: statistics.mean(t) for name, t in spans.items()}, attempt)
+    return None, {}, tries
+
+
+def _widest_slice(np, st):
+    """The most rows a slice of the stream spans, empty rows included: what
+    a walk over rows, rather than over edges, would visit in one slice."""
+    if not st.num_edges:
+        return 0
+    ends = st.row_ptr[st.nz_rows + 1]
+    last_edge = np.minimum((np.arange(st.num_slices) + 1) * st.slice_edges,
+                           st.num_edges) - 1
+    q_last = np.searchsorted(ends, last_edge, side="right")
+    return int((st.nz_rows[q_last] - st.nz_rows[st.slice_row[:-1]]).max()) + 1
+
+
+def _padded_upload_bytes(lay, blocked, n_formats):
+    """Device bytes the padded packet layouts would take for a registered
+    graph (fused: int16 x2/y2 rows, row_off, row_src, one value row-set a
+    format) and for the SpMV path (int16 packets, dst_start, packet_src, the
+    dst mask, values)."""
+    rows = lay.num_rows
+    fused = 2 * 2 * rows * PACKET + 4 * (lay.n_blk + 1) + 4 * (rows - 1) \
+        + n_formats * 4 * rows * PACKET
+    slots = blocked.num_packets * PACKET
+    spmv = 2 * 2 * slots + 4 * (blocked.n_dst + 1) + 4 * blocked.num_packets \
+        + blocked.n_dst * V_TILE + n_formats * 4 * slots
+    return fused, spmv
+
+
+def _timings(torch, row, kernel, plain, plain_repeats=10):
+    """A kernel row's times: ``ms`` (a call as a caller that waits sees it),
+    ``device_ms`` (the host's enqueue hidden), ``plain_ms`` (the plain
+    version's call), the device operations a call runs and the device ms of
+    each; ``library_ms`` stays None until ``_library_timings`` sets it."""
+    (row["device_ops_per_call"], row["device_ms_by_kernel"],
+     row["device_ops_profiles"]) = _device_ops(torch, kernel)
+    row["ms"] = _time_ms(torch, kernel)
+    row["device_ms"] = _time_ms(torch, kernel, hide_host=True)
+    row["plain_ms"] = _time_ms(torch, plain, repeats=plain_repeats)
+    row["library_ms"] = row["library_device_ms"] = None
+
+
+def _library_timings(torch, row, library):
+    """One library call's ``library_ms`` and ``library_device_ms``, the spans
+    of ``ms`` and ``device_ms``."""
+    row["library_ms"] = _time_ms(torch, library)
+    row["library_device_ms"] = _time_ms(torch, library, hide_host=True)
+
+
 def kernel_phase(torch, np, graphs, dev, timing: bool):
     from repro_torch.core.coo import BlockedCOO
     from repro_torch.core.fixed_point import Q1_25
@@ -144,20 +251,43 @@ def kernel_phase(torch, np, graphs, dev, timing: bool):
                                                fused_ppr_iteration, fused_ppr_plain)
     from repro_torch.ppr_serving.engine.fused import FusedRegisteredGraph
 
-    rows = []
+    rows, streams = [], {}
     for gname, g in graphs.items():
         blocked = BlockedCOO.build(g, v_tile=V_TILE, packet=PACKET)
         frg = FusedRegisteredGraph(gname, g, packet=PACKET, v_tile=V_TILE,
                                    device=dev)
         lay = frg.fused_layout()
+        st = frg.fused_stream()
         topo = frg.fused_topology()
+        sst = ops.dst_stream(blocked)
         fused_slots = (lay.num_rows - 1) * PACKET
-        print(f"[layout] {gname}: |V|={g.num_vertices} |E|={g.num_edges} "
-              f"dangling={int(g.dangling.sum())} BlockedCOO packets="
-              f"{blocked.num_packets} pad_overhead={blocked.pad_overhead:.4f} "
-              f"fused rows={lay.num_rows - 1} pad={fused_slots / g.num_edges:.4f}")
-        v = g.num_vertices
-        n_dang = int(topo["dang_idx"].shape[0])
+        v, e = g.num_vertices, g.num_edges
+        # device bytes of the registered graph's stream (topology + f32 and
+        # Q1.25 values) against the padded packet layouts of the same
+        stream_bytes = sum(t.numel() * t.element_size() for t in (
+            topo.row_ptr, topo.col, topo.nz_rows, topo.slice_row)) + 2 * 4 * st.num_edges
+        padded_fused, padded_spmv = _padded_upload_bytes(lay, blocked, 2)
+        stream_spmv = 4 * (sst.num_rows + 1) + 4 * sst.nz_rows.size \
+            + 4 * (sst.num_slices + 1) + 3 * 4 * sst.num_edges
+        streams[gname] = dict(
+            edges=e, slice_edges=st.slice_edges, slices=st.num_slices, ctas=st.num_ctas,
+            max_row=int(np.diff(st.row_ptr).max()), empty_rows=int((np.diff(st.row_ptr) == 0).sum()),
+            widest_slice_rows=_widest_slice(np, st),
+            fused_stream_bytes=stream_bytes, fused_padded_bytes=padded_fused,
+            spmv_stream_bytes=stream_spmv, spmv_padded_bytes=padded_spmv)
+        print(f"[layout] {gname}: |V|={v} |E|={e} dangling={int(g.dangling.sum())} "
+              f"BlockedCOO packets={blocked.num_packets} pad_overhead="
+              f"{blocked.pad_overhead:.4f} fused rows={lay.num_rows - 1} "
+              f"pad={fused_slots / e:.4f} (host only)")
+        print(f"[stream] {gname}: {st.num_edges} edges, slices of {st.slice_edges} "
+              f"edges, {st.num_slices} slices, {st.num_ctas} CTAs; longest row "
+              f"{streams[gname]['max_row']}, empty rows {streams[gname]['empty_rows']}, "
+              f"a slice spans at most {streams[gname]['widest_slice_rows']} rows; "
+              f"device bytes, f32 + Q1.25: fused stream {stream_bytes} against the "
+              f"padded {padded_fused} ({padded_fused / stream_bytes:.2f}x); SpMV stream "
+              f"{stream_spmv} against {padded_spmv} ({padded_spmv / stream_spmv:.2f}x)")
+        dang_idx = frg.fused_dangling()
+        n_dang = int(dang_idx.shape[0])
         for fmt in (None, Q1_25):
             dom = "f32" if fmt is None else fmt.name
             p_np, vm_np = _inputs(np, g, fmt, seed=len(gname) + (0 if fmt is None else 7))
@@ -165,12 +295,9 @@ def kernel_phase(torch, np, graphs, dev, timing: bool):
             vm = torch.as_tensor(vm_np, device=dev)
 
             # -- kernel 1: coo_spmv ------------------------------------------
-            op = ops.spmv_operands(blocked, dev, fmt)
             pp = ops.pad_p_for_blocks(p, blocked)
-            args = (op["x_local"], op["y_local"], op["val"], pp,
-                    op["dst_start"], op["packet_src"])
-            kw = dict(v_tile=V_TILE, packet=PACKET, n_dst=blocked.n_dst,
-                      frac_bits=None if fmt is None else fmt.frac_bits)
+            args = (*ops.spmv_operands(blocked, dev, fmt), pp)
+            kw = dict(frac_bits=None if fmt is None else fmt.frac_bits)
             out_k = coo_spmv_kernel(*args, **kw)
             out_p = coo_spmv_plain(*args, **kw)
             if fmt is None:
@@ -181,39 +308,32 @@ def kernel_phase(torch, np, graphs, dev, timing: bool):
                 err = 0.0
                 if not torch.equal(out_k, out_p):
                     _fail(f"coo_spmv {gname} {dom}: raw bits differ")
-            row = dict(kernel="coo_spmv", graph=gname, domain=dom, max_abs_err=err,
-                       pad_overhead=blocked.pad_overhead)
-            # real edges stream 2 + 2 + 4 B; a pad slot only its 4 B value,
-            # which the kernel reads to find it is a pad
-            slots = blocked.num_packets * PACKET
-            real = int((op["val"] != 0).sum())
+            row = dict(kernel="coo_spmv", graph=gname, domain=dom, max_abs_err=err)
+            # the stream's col and val (4 + 4 B an edge), row_ptr, the slice
+            # schedule (nz_rows, slice_row), P once and the output once
             row["bound_ms"] = _bound_ms(
-                real * 8 + (slots - real) * 4 + blocked.num_packets * 4
-                + (blocked.n_dst + 1) * 4 + pp.numel() * 4 + out_k.numel() * 4)
-            # the same function over the unpadded edge list
-            row["unpadded_bound_ms"] = _bound_ms(g.num_edges * 8 + 2 * v * K * 4)
+                sst.num_edges * 8 + (sst.num_rows + 1) * 4 + sst.nz_rows.size * 4
+                + (sst.num_slices + 1) * 4 + pp.numel() * 4 + out_k.numel() * 4)
+            # the function's bound: the edge list and P and out over |V| rows
+            row["unpadded_bound_ms"] = _bound_ms(e * 8 + 2 * v * K * 4)
             if timing:
-                row["ms"] = _time_ms(torch, lambda: coo_spmv_kernel(*args, **kw))
-                row["plain_ms"] = _time_ms(torch, lambda: coo_spmv_plain(*args, **kw),
-                                           repeats=10)
-                row["library_ms"] = None
+                _timings(torch, row, lambda: coo_spmv_kernel(*args, **kw),
+                         lambda: coo_spmv_plain(*args, **kw))
                 if fmt is None:   # one torch.sparse.mm on a CSR copy of X
                     X = torch.sparse_coo_tensor(
                         torch.as_tensor(np.stack([g.x, g.y]).astype(np.int64), device=dev),
                         torch.as_tensor(g.val, device=dev), (v, v)).coalesce().to_sparse_csr()
-                    row["library_ms"] = _time_ms(torch, lambda: torch.sparse.mm(X, p))
+                    _library_timings(torch, row, lambda: torch.sparse.mm(X, p))
                     ref = torch.sparse.mm(X, p)
                     lib_err = float((ref - out_k[:v]).abs().max())
                     if lib_err > 1e-6:
                         _fail(f"coo_spmv {gname} f32 vs torch.sparse.mm: {lib_err}")
+                    del X, ref
             rows.append(row)
 
-            # -- kernel 2: the fused iteration (a + b) ----------------------
-            val2 = frg.fused_values(fmt)
-            fargs = (topo["row_off"], topo["row_src"], topo["x2"], topo["y2"], val2,
-                     topo["dang_idx"], vm, p)
-            fkw = dict(v_tile=V_TILE, packet=PACKET, n_blk=lay.n_blk,
-                       num_vertices=v, alpha=ALPHA, fmt=fmt)
+            # -- kernel 2: the fused iteration (A + B) ----------------------
+            fargs = (topo, frg.fused_values(fmt), dang_idx, vm, p)
+            fkw = dict(alpha=ALPHA, fmt=fmt)
             pn_k, res_k = fused_ppr_iteration(*fargs, **fkw)
             pn_p, res_p = fused_ppr_plain(*fargs, **fkw)
             if fmt is None:
@@ -236,25 +356,25 @@ def kernel_phase(torch, np, graphs, dev, timing: bool):
                     if not torch.allclose(res_k[r], res_p[r], rtol=1e-4, atol=0.0):
                         _fail(f"fused {gname} {dom}: residual row {r}")
             row = dict(kernel="fused_ppr_iteration", graph=gname, domain=dom,
-                       max_abs_err=err, launches_per_iteration=2,
-                       pad_overhead=fused_slots / g.num_edges)
-            # P and V̄ read once, P_next written once; stream bytes as above
+                       max_abs_err=err)
+            # stream bytes as above; P and V̄ read once, P_next written once
             state = v * K * 4
-            real = int((val2 != 0).sum())
             row["bound_ms"] = _bound_ms(
-                real * 8 + (fused_slots - real) * 4 + (lay.num_rows - 1) * 4
-                + (lay.n_blk + 1) * 4 + n_dang * 4 + 3 * state + 3 * K * 4)
+                st.num_edges * 8 + (v + 1) * 4 + st.nz_rows.size * 4
+                + (st.num_slices + 1) * 4 + n_dang * 4 + 3 * state + 3 * K * 4)
             row["unpadded_bound_ms"] = _bound_ms(
-                g.num_edges * 8 + n_dang * 4 + 3 * state + 3 * K * 4)
+                e * 8 + n_dang * 4 + 3 * state + 3 * K * 4)
             if timing:
-                row["ms"] = _time_ms(torch, lambda: fused_ppr_iteration(*fargs, **fkw))
-                row["plain_ms"] = _time_ms(torch, lambda: fused_ppr_plain(*fargs, **fkw),
-                                           repeats=10)
-                row["library_ms"] = None
+                _timings(torch, row, lambda: fused_ppr_iteration(*fargs, **fkw),
+                         lambda: fused_ppr_plain(*fargs, **fkw))
+                ops_n = row["device_ops_per_call"]
+                if ops_n is not None and ops_n > 3:
+                    _fail(f"fused_ppr_iteration {gname} {dom}: {ops_n} device operations "
+                          f"a call (at most 3: two kernels and a fill)")
             rows.append(row)
 
-            dm_k = dangling_mass(p, topo["dang_idx"], fixed=fmt is not None)
-            dm_p = dangling_mass_plain(p, topo["dang_idx"], fixed=fmt is not None)
+            dm_k = dangling_mass(p, dang_idx, fixed=fmt is not None)
+            dm_p = dangling_mass_plain(p, dang_idx, fixed=fmt is not None)
             if fmt is None:
                 err = float((dm_k - dm_p).abs().max())
                 if not torch.allclose(dm_k, dm_p, rtol=1e-5, atol=1e-8):
@@ -265,21 +385,20 @@ def kernel_phase(torch, np, graphs, dev, timing: bool):
                     _fail(f"dangling_mass {gname} {dom}: raw bits differ")
             nbytes = n_dang * (4 + K * 4) + K * 4
             row = dict(kernel="fused_ppr_dangling_mass", graph=gname, domain=dom,
-                       max_abs_err=err, pad_overhead=1.0, bound_ms=_bound_ms(nbytes),
+                       max_abs_err=err, bound_ms=_bound_ms(nbytes),
                        unpadded_bound_ms=_bound_ms(nbytes))
             if timing:
-                row["ms"] = _time_ms(torch, lambda: dangling_mass(
-                    p, topo["dang_idx"], fixed=fmt is not None))
-                row["plain_ms"] = _time_ms(torch, lambda: dangling_mass_plain(
-                    p, topo["dang_idx"], fixed=fmt is not None))
-                row["library_ms"] = None
+                _timings(torch, row,
+                         lambda: dangling_mass(p, dang_idx, fixed=fmt is not None),
+                         lambda: dangling_mass_plain(p, dang_idx, fixed=fmt is not None),
+                         plain_repeats=REPEATS)
                 if fmt is None:   # one dense product d̄ᵀP, the reference's float path
                     d = torch.as_tensor(g.dangling.astype(np.float32), device=dev)
-                    row["library_ms"] = _time_ms(torch, lambda: d @ p)
+                    _library_timings(torch, row, lambda: d @ p)
             rows.append(row)
             print(f"[parity] {gname} {dom}: coo_spmv, fused_ppr_iteration, "
                   f"dangling_mass pass")
-    return rows
+    return rows, streams
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +407,7 @@ def kernel_phase(torch, np, graphs, dev, timing: bool):
 def _serve(torch, svc_cls, query_cls, g, engine, queries, dev, passes):
     """Serve ``queries`` once to warm up, then ``passes`` timed times.
     Returns (last pass's recommendations, per-pass seconds, waves run in
-    all, telemetry summary over the timed passes)."""
+    all, telemetry summary over the timed passes, the pass as a function)."""
     svc = svc_cls(kappa=16, iterations=10, cache_capacity=0, device=dev)
     svc.register_graph("g", g, formats=[26], engine=engine)
 
@@ -310,7 +429,68 @@ def _serve(torch, svc_cls, query_cls, g, engine, queries, dev, passes):
         recs = run()
         times.append(time.perf_counter() - t0)
     summary = svc.telemetry_summary()
-    return recs, times, warm_waves + int(summary["waves"]), summary
+    return recs, times, warm_waves + int(summary["waves"]), summary, run
+
+
+def _host_ms_per_iteration(run):
+    """Host milliseconds a served ``fused_ppr_iteration`` call takes (Python,
+    operand checks, allocations, ctypes, two launches; no synchronise), over
+    one pass of ``run``."""
+    from repro_torch.ppr_serving.engine import fused as fused_engine
+
+    kernel, spent = fused_engine.fused_ppr_iteration, []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = kernel(*a, **kw)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    fused_engine.fused_ppr_iteration = timed
+    try:
+        run()
+    finally:
+        fused_engine.fused_ppr_iteration = kernel
+    return statistics.median(spent) * 1e3, sum(spent) * 1e3, len(spent)
+
+
+def _busy_profile(torch, run, passes=3, tries=3):
+    """Device-busy share of ``passes`` served passes under ``torch.profiler``:
+    the union of device-event intervals over the window of the passes, and
+    device time by kernel name.  A profile that delivers no device event is
+    profiled again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("served_passes"):
+                for _ in range(passes):
+                    run()
+        events = prof.events()
+        if any(_on_device(torch, e) and e.name != "served_passes" for e in events):
+            break
+    win = [e for e in events if e.name == "served_passes"
+           and e.device_type != torch.autograd.DeviceType.CUDA][0].time_range
+    device = [e for e in events if _on_device(torch, e) and e.name != "served_passes"]
+    dev_iv = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, cur_s, cur_e, by_name = 0.0, None, None, {}
+    for e in device:
+        by_name[_short(e.name)] = (by_name.get(_short(e.name), 0.0)
+                                   + (e.time_range.end - e.time_range.start))
+    for a, b in dev_iv:
+        if cur_e is None or a > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    window = win.end - win.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(passes=passes, window_ms=window / 1e3, device_busy_ms=busy / 1e3,
+                device_busy_share=(busy / window) if window else None,
+                device_events=len(dev_iv),
+                device_ms_by_name={k: v / 1e3 for k, v in top})
 
 
 def service_phase(torch, np, g, dev, n_fixed=64, n_float=32, passes=10):
@@ -323,14 +503,17 @@ def service_phase(torch, np, g, dev, n_fixed=64, n_float=32, passes=10):
     queries = ([(int(v), 26) for v in verts[:n_fixed]]
                + [(int(v), None) for v in verts[n_fixed:]])
     reset_launch_counts()
-    fused, t_fused, waves_run, s_fused = _serve(
+    fused, t_fused, waves_run, s_fused, run_fused = _serve(
         torch, PPRService, PPRQuery, g, "fused", queries, dev, passes)
     counts = launch_counts()
     waves = int(s_fused["waves"])           # over the timed passes
-    for name in ("fused_ppr_iteration", "fused_ppr_dangling_mass"):
-        if counts[name] == 0:
-            _fail(f"the served path launched {name} no time")
-    single, t_single, _, s_single = _serve(
+    if counts["fused_ppr_iteration"] == 0:
+        _fail("the served path launched fused_ppr_iteration no time")
+    host_p50_ms, host_total_ms, host_calls = _host_ms_per_iteration(run_fused)
+    busy = _busy_profile(torch, run_fused)
+    if not busy["device_events"]:
+        _fail("torch.profiler saw no device event in the served passes")
+    single, t_single, _, s_single, _ = _serve(
         torch, PPRService, PPRQuery, g, "single", queries, dev, passes)
     float_err, float_vert_agree = 0.0, 0
     for rf, rs in zip(fused, single):
@@ -378,6 +561,9 @@ def service_phase(torch, np, g, dev, n_fixed=64, n_float=32, passes=10):
                single_wave_latency_p95_s=s_single["wave_latency_p95_s"],
                launches=counts, launches_per_wave={
                    k: v / waves_run for k, v in counts.items()},
+               host_ms_per_iteration_p50=host_p50_ms,
+               host_ms_iterations_per_pass=host_total_ms, iterations_per_pass=host_calls,
+               fused_profile=busy,
                float_max_score_diff=float_err,
                float_vertex_lists_equal=float_vert_agree,
                oracle_top10_overlap=overlaps)
@@ -387,7 +573,14 @@ def service_phase(torch, np, g, dev, n_fixed=64, n_float=32, passes=10):
           f"float lists equal {float_vert_agree}/{n_float}")
     print(f"[service] fused launches during the phase: {counts}; per wave: "
           f"fused_ppr_iteration {counts['fused_ppr_iteration'] / waves_run:g}, "
-          f"fused_ppr_dangling_mass {counts['fused_ppr_dangling_mass'] / waves_run:g}")
+          f"fused_ppr_dangling_mass {counts['fused_ppr_dangling_mass'] / waves_run:g} "
+          f"(folded into fused_ppr_iteration's kernel A)")
+    print(f"[service] fused host time per fused_ppr_iteration call: p50 "
+          f"{host_p50_ms:.4f} ms ({host_calls} calls, {host_total_ms:.2f} ms of a pass)")
+    print(f"[service] fused profile over {busy['passes']} passes: window "
+          f"{busy['window_ms']:.2f} ms, device busy {busy['device_busy_ms']:.2f} ms "
+          f"({100 * busy['device_busy_share']:.1f}%), {busy['device_events']} device "
+          f"events; by name {json.dumps(busy['device_ms_by_name'])}")
     print(f"[service] top-10 overlap with scipy float64 oracle (4 Q1.25, 4 f32): "
           f"{overlaps}")
     return out
@@ -516,6 +709,25 @@ def _check_close(torch, name, got, want, tol):
     return err
 
 
+def lm_ops_per_call(torch, dev):
+    """Device operations one call of each LM kernel wrapper runs, counted by
+    ``torch.profiler`` on small inputs before the other phases (one launch
+    each whatever the shape)."""
+    from repro_torch.core.quantization import quantize_weights
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+
+    gen = torch.Generator(dev).manual_seed(5)
+    q = torch.randn((1, 128, 4, 64), generator=gen, device=dev)
+    kv = torch.randn((1, 128, 1, 64), generator=gen, device=dev)
+    a = torch.randn((128, 128), generator=gen, device=dev)
+    qw = quantize_weights(torch.randn((128, 128), generator=gen, device=dev))
+    return {"flash_attention": _device_ops(
+                torch, lambda: flash_attention_gqa(q, kv, kv, causal=True))[0],
+            "quantized_matmul": _device_ops(
+                torch, lambda: ops.quantized_matmul(a, qw.q, qw.scale))[0]}
+
+
 def lm_kernel_phase(torch, dev):
     import torch.nn.functional as F
 
@@ -555,6 +767,7 @@ def lm_kernel_phase(torch, dev):
                                   4 * d * b * h * _valid_pairs(s, causal, window), dom)
             rows.append(dict(
                 kernel="flash_attention", case=name, domain=dom, max_abs_err=err,
+
                 shape=dict(B=b, S=s, H=h, KV=kv, d=d, causal=causal, window=window),
                 ms=_time_ms(torch, lambda: flash_attention_gqa(q, k, v, **kw)),
                 plain_ms=_time_ms(torch, lambda: flash_attention_gqa_plain(q, k, v, **kw),
@@ -576,6 +789,7 @@ def lm_kernel_phase(torch, dev):
                                   2 * m * kdim * n, dom)
             rows.append(dict(
                 kernel="quantized_matmul", case=name, domain=dom, max_abs_err=err,
+
                 shape=dict(M=m, K=kdim, N=n),
                 ms=_time_ms(torch, lambda: ops.quantized_matmul(a, qw.q, qw.scale)),
                 plain_ms=_time_ms(torch, lambda: quantized_matmul_plain(a, qw.q, qw.scale)),
@@ -835,10 +1049,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
 
+    lm_ops = lm_ops_per_call(torch, dev)
+    print(f"[device-ops] one call each: {lm_ops}")
     t0 = time.perf_counter()
     graphs = _graphs()
     print(f"[graphs] generated in {time.perf_counter() - t0:.1f} s")
-    rows = kernel_phase(torch, np, graphs, dev, timing=True)
+    rows, streams = kernel_phase(torch, np, graphs, dev, timing=True)
     service = service_phase(torch, np, graphs["gnp_2e5"], dev)
     early = early_exit_phase(torch, np, graphs["pl_2e5"], dev)
     spmv_counts = spmv_path_phase(torch, np, graphs["gnp_2e5"], dev)
@@ -846,12 +1062,20 @@ def main() -> int:
     lm = lm_serving_phase(torch, np, dev)
 
     print("[times] kernel graph domain: ms plain_ms bound_ms library_ms "
-          "unpadded_bound_ms pad_overhead")
+          "function_bound_ms bound_share | device_ms device_bound_share "
+          "library_device_ms | device_ops_per_call (profiles) device_ms_by_kernel")
+
+    def opt(x):
+        return "null" if x is None else f"{x:.4f}"
+
     for r in rows:
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[times] {r['kernel']} {r['graph']} {r['domain']}: {r['ms']:.4f} "
-              f"{r['plain_ms']:.4f} {r['bound_ms']:.4f} {lib} "
-              f"{r['unpadded_bound_ms']:.4f} {r['pad_overhead']:.4f}")
+              f"{r['plain_ms']:.4f} {r['bound_ms']:.4f} {opt(r['library_ms'])} "
+              f"{r['unpadded_bound_ms']:.4f} {r['bound_ms'] / r['ms']:.4f} | "
+              f"{r['device_ms']:.4f} {r['bound_ms'] / r['device_ms']:.4f} "
+              f"{opt(r['library_device_ms'])} | {r['device_ops_per_call']} "
+              f"({r['device_ops_profiles']}) "
+              f"{json.dumps({k: round(t, 5) for k, t in r['device_ms_by_kernel'].items()})}")
     sv = service
     print(f"[times] service gnp_2e5 over {sv['passes']} passes: fused "
           f"{sv['fused_queries_per_s']:.1f} queries/s (passes "
@@ -874,20 +1098,25 @@ def main() -> int:
                                        "src/repro/kernels/fused_ppr.py:404"),
                "fused_ppr_dangling_mass": ("src/repro_torch/csrc/fused_ppr.cu",
                                            "src/repro/kernels/fused_ppr.py:365")}
+    launches_source = {
+        "coo_spmv": "phase 5: core.spmv.spmv_kernel",
+        "fused_ppr_iteration": "phase 3: PPRService served path",
+        "fused_ppr_dangling_mass": "phase 3: PPRService served path, where the "
+                                   "dangling fold runs inside fused_ppr_iteration's "
+                                   "kernel A and this standalone launch is not made"}
     kernels = []
     for r in rows:
-        if r["graph"] != "gnp_2e5":
-            continue
         src, repl = sources[r["kernel"]]
+        suffix = "" if r["graph"] == "gnp_2e5" else f",{r['graph']}"
         kernels.append(dict(
-            name=f"{r['kernel']}[{r['domain']}]", route="cuda", source=src,
+            name=f"{r['kernel']}[{r['domain']}{suffix}]", route="cuda", source=src,
             replaces=repl, launches=launches[r["kernel"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
-            unpadded_bound_ms=r["unpadded_bound_ms"], pad_overhead=r["pad_overhead"],
-            launches_source=("phase 5: core.spmv.spmv_kernel" if r["kernel"] == "coo_spmv"
-                             else "phase 3: PPRService served path"),
-            parity="pass"))
+            function_bound_ms=r["unpadded_bound_ms"],
+            device_ops_per_call=r["device_ops_per_call"], device_ms=r["device_ms"],
+            library_device_ms=r["library_device_ms"],
+            launches_source=launches_source[r["kernel"]], parity="pass"))
     lm_sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                       "src/repro/kernels/flash_attention.py:86"),
                   "quantized_matmul": ("src/repro_torch/csrc/fixed_matmul.cu",
@@ -899,6 +1128,7 @@ def main() -> int:
             replaces=repl, launches=lm["launches"][r["kernel"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            device_ops_per_call=lm_ops[r["kernel"]],
             launches_source="phase 7(b): gemma-2b layer-0 attention and int8 MLP "
                             "through the kernels' entry points, composed by this script",
             parity="pass"))
@@ -906,7 +1136,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=build_s, kernel_rows=rows, service=service, early_exit=early,
+        build_s=build_s, streams=streams, kernel_rows=rows, service=service,
+        early_exit=early,
         lm_kernel_rows=lm_rows, lm_serving=lm, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,110 +1,110 @@
-// Streaming COO SpMM out = X·P over the 2-D BlockedCOO layout (paper §4.1.1).
+// Streaming COO SpMM out = X·P (paper §4.1.1) over the pad-free dst stream.
 //
 // Replaces the TPU kernel src/repro/kernels/coo_spmv.py::coo_spmv_pallas
-// (bodies _kernel_float / _kernel_fixed, limb multiply _fixed_mul_u32).
+// (bodies _kernel_float / _kernel_fixed, limb multiply _fixed_mul_u32), which
+// streams the BlockedCOO packets.  The port reads the same edges as CSR over
+// dst rows without the packets' pad slots (kernels/dst_stream.py), so the
+// function computed is the same: out[i] = Σ_{e: dst(e) = i} val[e] · P[src(e)],
+// a float32 sum, or truncating Qm.f products summed mod 2^32 in raw bits.
 //
-// Grid: one CUDA block per dst tile.  BlockedCOO is dst-major, so a dst
-// tile's packets are one contiguous range [dst_start[d], dst_start[d+1]).
-// The block keeps the v_tile x K accumulator in shared memory (the VMEM
-// accumulator of the TPU kernel; 512 x 16 x 4 B = 32 KB at the paper's
-// sizes), walks its packets, and writes the tile to global memory once.
-// A dst tile with no packets is written as zeros.
+// Two launches on one stream:
+//   (a) spmv_kernel — one warp a slice of the stream, kWarps a CTA (the SpMV
+//       of dst_stream.cuh): each slot of a warp walks a run of edges, rows are
+//       summed in registers and stored once; rows cut by a slice boundary
+//       leave partials;
+//   (b) fixup_kernel — one thread a (row, column group): writes empty rows as
+//       0 and adds the carry partials of cut rows in slice order.
 //
-// Thread map: thread t owns column kk = t % K and edge lane t / K; the
-// block sweeps a packet's edges `lanes` at a time.  Per edge the thread
-//   - gathers P[src_blk * v_tile + y_local, kk] from global memory (P is
-//     12.8 MB at |V| = 2e5, K = 16, and stays in the 50 MB L2);
-//   - multiplies: f32, or (uint32)(((uint64)a * b) >> f), which equals the
-//     reference's 16-bit-limb multiply for every uint32 pair;
-//   - adds into shared memory with atomicAdd.  A uint32 add wraps mod 2^32,
-//     exactly like the reference's int32 one-hot dot; the float sum's order
-//     differs from the reference's, so float parity holds to a tolerance.
-// Pad slots (val == 0) are skipped: their product is exactly 0 in both
-// domains for finite P, so skipping them changes no bit.
-//
-// Bound on the H100: bytes — 2 + 2 + 4 B per real edge, 4 B per pad slot
-// (its value is read, its indices are not), plus P and out.  The BlockedCOO
-// padding makes the stream 10.8x (pl_2e5) to 18.6x (gnp_2e5) longer than the
-// edge count; this first kernel keeps the reference layout and skips the
-// pads' index loads, gathers and atomics, so its extra cost is the pads'
-// 4 B value read each and the walk over their slots.
+// Bound on the H100: bytes — 4 + 4 B per edge (col, val), row_ptr, P and the
+// output once.  The gathers of P rows (64 B at K = 16) hit the 50 MB L2 (P is
+// 12.8 MB at |V| = 2e5), so HBM moves the stream and P once.  The design
+// keeps the card busy with ~1,000 CTAs whatever the skew (a hub row spans
+// many slices, a run of one-edge rows costs what a long row does, empty rows
+// cost the SpMV nothing) and keeps four gathers in flight a lane.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dst_stream.cuh"
+
 namespace {
 
-template <bool FIXED>
-__global__ void coo_spmv_kernel(const uint16_t* __restrict__ x_local,
-                                const uint16_t* __restrict__ y_local,
-                                const uint32_t* __restrict__ val,
-                                const uint32_t* __restrict__ p,
-                                const int32_t* __restrict__ dst_start,
-                                const int32_t* __restrict__ packet_src,
-                                uint32_t* __restrict__ out,
-                                int v_tile, int packet, int k, int frac_bits) {
-  extern __shared__ uint32_t acc[];          // [v_tile * k], f32 or uint32 bits
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;                  // a multiple of k
-  const int kk = tid % k;
-  const int lanes = nt / k;
-  const int tile = v_tile * k;
-  for (int i = tid; i < tile; i += nt) acc[i] = 0u;
-  __syncthreads();
+using namespace dst_stream;
 
-  const int d = blockIdx.x;
-  const int p0 = dst_start[d];
-  const int p1 = dst_start[d + 1];
-  for (int pk = p0; pk < p1; ++pk) {
-    const int64_t base = (int64_t)pk * packet;
-    const int64_t src_row0 = (int64_t)packet_src[pk] * v_tile;
-    for (int e = tid / k; e < packet; e += lanes) {
-      const uint32_t v = val[base + e];
-      if (v == 0u) continue;                  // pad slot: contributes exactly 0
-      const int xl = x_local[base + e];
-      const int yl = y_local[base + e];
-      const uint32_t pv = p[(src_row0 + yl) * k + kk];
-      if (FIXED) {
-        const uint32_t prod = (uint32_t)(((uint64_t)v * pv) >> frac_bits);
-        atomicAdd(&acc[xl * k + kk], prod);
-      } else {
-        atomicAdd(reinterpret_cast<float*>(&acc[xl * k + kk]),
-                  __fmul_rn(__uint_as_float(v), __uint_as_float(pv)));
-      }
+template <bool FIXED, int VW>
+__global__ void __launch_bounds__(kThreads)
+spmv_kernel(const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ col,
+            const uint32_t* __restrict__ val, const int32_t* __restrict__ nz_rows,
+            const int32_t* __restrict__ slice_row, const uint32_t* __restrict__ p,
+            uint32_t* __restrict__ out, uint32_t* __restrict__ carry, int n_edges,
+            int slice_edges, int k, int frac_bits) {
+  extern __shared__ uint32_t smem[];
+  spmv_cta<FIXED, VW>(row_ptr, col, val, nz_rows, slice_row, p, n_edges, slice_edges, k,
+                      frac_bits, smem, out, carry);
+}
+
+template <bool FIXED, int VW>
+__global__ void __launch_bounds__(kThreads)
+fixup_kernel(const int32_t* __restrict__ row_ptr, const uint32_t* __restrict__ carry,
+             uint32_t* __restrict__ out, int n_rows, int slice_edges, int k) {
+  const int cg_total = k / VW;
+  const int chunk = kWarps * slice_edges;
+  const int64_t items = (int64_t)n_rows * cg_total;
+  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < items;
+       idx += (int64_t)gridDim.x * blockDim.x) {
+    const int r = (int)(idx / cg_total);
+    const int c0 = (int)(idx - (int64_t)r * cg_total) * VW;
+    const int rs = __ldg(row_ptr + r), re = __ldg(row_ptr + r + 1);
+    uint32_t* o = out + (int64_t)r * k + c0;
+    uint32_t x[VW];
+    if (re == rs) {
+#pragma unroll
+      for (int i = 0; i < VW; ++i) x[i] = 0u;
+      store_vec<VW>(o, x);
+    } else if ((rs / chunk + 1) * (int64_t)chunk < re) {   // cut by a chunk boundary
+      load_vec<VW>(o, x);
+      close_row<FIXED, VW>(carry, rs, re, chunk, k, c0, x);
+      store_vec<VW>(o, x);
     }
   }
-  __syncthreads();
-  uint32_t* dst = out + (int64_t)d * tile;
-  for (int i = tid; i < tile; i += nt) dst[i] = acc[i];
+}
+
+template <bool FIXED, int VW>
+void launch(const void* row_ptr, const void* col, const void* val, const void* nz_rows,
+            const void* slice_row, const void* p, void* out, void* carry, int n_rows,
+            int n_edges, int n_ctas, int slice_edges, int k, int frac_bits, int fix_ctas,
+            cudaStream_t s) {
+  const int smem = (int)sizeof(uint32_t) * kWarps * warp_words(slice_edges);
+  auto a = spmv_kernel<FIXED, VW>;
+  cudaFuncSetAttribute(a, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  a<<<n_ctas, kThreads, smem, s>>>(
+      static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(col),
+      static_cast<const uint32_t*>(val), static_cast<const int32_t*>(nz_rows),
+      static_cast<const int32_t*>(slice_row), static_cast<const uint32_t*>(p),
+      static_cast<uint32_t*>(out), static_cast<uint32_t*>(carry), n_edges, slice_edges,
+      k, frac_bits);
+  fixup_kernel<FIXED, VW><<<fix_ctas, kThreads, 0, s>>>(
+      static_cast<const int32_t*>(row_ptr), static_cast<const uint32_t*>(carry),
+      static_cast<uint32_t*>(out), n_rows, slice_edges, k);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched).
-int coo_spmv_launch(const void* x_local, const void* y_local, const void* val,
-                    const void* p, const void* dst_start, const void* packet_src,
-                    void* out, int n_dst, int v_tile, int packet, int k,
-                    int frac_bits, int threads, int smem_bytes, void* stream) {
+// out [n_rows, k] = X·P.  frac_bits < 0 selects float32; vec is 4 (k % 4 == 0,
+// 16 B aligned P and out) or 1.  Returns cudaGetLastError() after the launches.
+int coo_spmv_launch(const void* row_ptr, const void* col, const void* val,
+                    const void* nz_rows, const void* slice_row, const void* p, void* out,
+                    void* carry, int n_rows, int n_edges, int n_ctas, int slice_edges, int k,
+                    int frac_bits, int vec, int fix_ctas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();                         // clear any stale error
-  if (frac_bits >= 0) {
-    auto fn = coo_spmv_kernel<true>;
-    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    fn<<<n_dst, threads, smem_bytes, s>>>(
-        static_cast<const uint16_t*>(x_local), static_cast<const uint16_t*>(y_local),
-        static_cast<const uint32_t*>(val), static_cast<const uint32_t*>(p),
-        static_cast<const int32_t*>(dst_start), static_cast<const int32_t*>(packet_src),
-        static_cast<uint32_t*>(out), v_tile, packet, k, frac_bits);
-  } else {
-    auto fn = coo_spmv_kernel<false>;
-    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    fn<<<n_dst, threads, smem_bytes, s>>>(
-        static_cast<const uint16_t*>(x_local), static_cast<const uint16_t*>(y_local),
-        static_cast<const uint32_t*>(val), static_cast<const uint32_t*>(p),
-        static_cast<const int32_t*>(dst_start), static_cast<const int32_t*>(packet_src),
-        static_cast<uint32_t*>(out), v_tile, packet, k, 0);
-  }
+  const bool fixed = frac_bits >= 0;
+  const int f = fixed ? frac_bits : 0;
+  auto fn = fixed ? (vec == 4 ? launch<true, 4> : launch<true, 1>)
+                  : (vec == 4 ? launch<false, 4> : launch<false, 1>);
+  fn(row_ptr, col, val, nz_rows, slice_row, p, out, carry, n_rows, n_edges, n_ctas,
+     slice_edges, k, f, fix_ctas, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,6 +4,8 @@
               and bit-exact fixed point.
 - fused_ppr:  one whole eq. (1) iteration (csrc/fused_ppr.cu): dangling-mass
               fold, SpMV, combine and residual.
+  Both read the pad-free, dst-sorted edge stream of ``dst_stream.py``
+  through the shared device code of csrc/dst_stream.cuh.
 - fixed_matmul:    reduced-precision serving matmul, f32/bf16 activations x
                    int8 per-channel weights (csrc/fixed_matmul.cu).
 - flash_attention: blocked online-softmax attention for the LM stack, causal

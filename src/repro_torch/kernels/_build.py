@@ -6,19 +6,23 @@ its own shared library, loaded with ``ctypes``::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads what an earlier run built.
+The library name carries a hash of the source, of the ``csrc/`` headers it
+includes (``#include "<header>"``) and of the flags, so an edited source or
+header rebuilds and an unchanged one loads what an earlier run built.
 Nothing is built when a module is imported: the first CUDA launch of a kernel
 builds it, and ``build_all`` builds every source at once, one ``nvcc`` per
 source, all started together.  ptxas' register and shared-memory report lands
 next to each library as ``<name>-<hash>.log``.  ``check_operand`` is the one
-operand check every kernel wrapper makes before a launch.
+operand check every kernel wrapper makes before a launch.  ``csrc_constants``
+reads a source's ``constexpr int`` literals, so that a wrapper sizes its
+launches from the constants the kernel is compiled with.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +30,7 @@ from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "build_log", "check_operand",
-           "load"]
+           "csrc_constants", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <repo>/build/repro_torch (this file is <repo>/src/repro_torch/kernels/_build.py)
@@ -52,9 +56,23 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+_CONSTEXPR = re.compile(r"^\s*constexpr\s+int\s+(\w+)\s*=\s*(\d+)\s*;", re.MULTILINE)
+
+
+def csrc_constants(filename: str) -> Dict[str, int]:
+    """The ``constexpr int <name> = <literal>;`` constants of ``csrc/<filename>``
+    (read from the text: nothing is built)."""
+    text = (CSRC / filename).read_text()
+    return {name: int(value) for name, value in _CONSTEXPR.findall(text)}
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    text = src.read_bytes()
+    h = hashlib.sha256(text)
+    for header in sorted(set(_INCLUDE.findall(text))):
+        h.update((CSRC / header.decode()).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

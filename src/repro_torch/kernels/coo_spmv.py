@@ -2,18 +2,23 @@
 
 Replaces ``src/repro/kernels/coo_spmv.py::coo_spmv_pallas`` (bodies
 ``_kernel_float``/``_kernel_fixed``, limb multiply ``_fixed_mul_u32``).  The
-kernel is ``csrc/coo_spmv.cu``; its header says how it maps the TPU design.
+kernel is ``csrc/coo_spmv.cu`` over ``csrc/dst_stream.cuh``; it reads the
+pad-free dst stream of ``kernels/dst_stream.py`` (the same edges as the
+reference's packets, without their pad slots).
 
-Bound on the H100: memory bytes — 2 + 2 + 4 B per real edge and 4 B per pad
-slot (its value only), P once and the output once.  The design keeps each dst
-tile's accumulator in shared memory (one CUDA block per dst tile, written
-once) and skips the index loads, gathers and atomics of pad slots, so the
-padding costs its value reads and the walk over its slots.
+Bound on the H100: memory bytes — 4 + 4 B per edge (col, val), ``row_ptr``,
+P once and the output once; the P-row gathers hit the 50 MB L2.  The design
+balances work by edges (one warp a slice of the stream, about a thousand
+CTAs whatever the skew), sums rows in registers and shuffles, keeps four
+gathers in flight a lane, and closes rows cut by a slice boundary in a
+second, row-parallel launch.
 
-``coo_spmv_kernel`` launches the kernel for CUDA tensors and raises on any
-operand the kernel does not take; for CPU tensors it runs ``coo_spmv_plain``,
-the same function in plain PyTorch.  ``coo_spmv_kernel.launches`` counts the
-kernel launches.
+``coo_spmv_kernel`` takes the stream as a ``StreamTopology``
+(``DstStream.topology``), so its slice schedule always comes with the slice
+size it was cut at.  It launches the kernels for CUDA tensors and raises on
+any operand they do not take; for CPU tensors it runs ``coo_spmv_plain``, the
+same function in plain PyTorch.  ``coo_spmv_kernel.launches`` counts calls
+that launched (two device launches each).
 """
 from __future__ import annotations
 
@@ -27,92 +32,111 @@ from repro_torch.core.spmv import spmv_fixed, spmv_float
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_operand
 
-__all__ = ["coo_spmv_kernel", "coo_spmv_plain", "launch_geometry"]
+__all__ = ["coo_spmv_kernel", "coo_spmv_plain", "launch_geometry", "check_stream",
+           "stream_rows", "WARPS_PER_CTA", "MAX_SLICE_EDGES"]
 
+# the CTA and shared-memory layout csrc/dst_stream.cuh is compiled with
+_CUH = _build.csrc_constants("dst_stream.cuh")
+WARPS_PER_CTA = _CUH["kWarps"]          # one stream slice a warp
+MAX_SLICE_EDGES = 1024     # a CTA stages WARPS_PER_CTA slices in shared memory
+THREADS = 32 * WARPS_PER_CTA
 # shared memory a block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
 
 
-def launch_geometry(v_tile: int, k: int, extra_words: int = 0):
-    """(threads, dynamic shared bytes) for a v_tile x K shared accumulator.
+def launch_geometry(k: int, slice_edges: int):
+    """(threads, dynamic shared bytes, vector width) of the stream SpMV.
 
-    Threads are a multiple of K (each thread owns one column); raises when the
-    accumulator does not fit in a block's shared memory."""
+    A CTA stages ``WARPS_PER_CTA`` slices in shared memory: each slice's
+    col and val, its rows' starts and ids, and its slots' partials
+    (``warp_words`` in ``csrc/dst_stream.cuh``); a lane loads 4 columns of a
+    P row at once when K % 4 == 0, else 1.  Raises on K outside [1, 1024]
+    and on slices the shared memory does not take."""
     if not 1 <= k <= 1024:
         raise ValueError(f"K={k} columns: the kernels take 1 <= K <= 1024")
-    smem = 4 * (v_tile * k + extra_words)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"v_tile={v_tile} x K={k} accumulator needs {smem} B of "
-                         f"shared memory, above the {MAX_SMEM_BYTES} B a block has")
-    return k * max(1, 256 // k), smem
+    warp_words = _CUH["kWordsPerSliceEdge"] * slice_edges + _CUH["kWarpFixedWords"]
+    smem = 4 * WARPS_PER_CTA * warp_words
+    if slice_edges % 32 or not 32 <= slice_edges <= MAX_SLICE_EDGES or smem > MAX_SMEM_BYTES:
+        raise ValueError(f"slice_edges={slice_edges} stages {smem} B in shared memory: "
+                         f"the kernels take multiples of 32 in [32, {MAX_SLICE_EDGES}]")
+    return THREADS, smem, 4 if k % 4 == 0 else 1
 
 
-def _local(idx: torch.Tensor) -> torch.Tensor:
-    """16-bit tile-local indices (int16 holding uint16 bits) → int64."""
-    return idx.to(torch.int64) & 0xFFFF
+def check_stream(topo, val, p, dom) -> int:
+    """Raise unless ``topo`` (a ``StreamTopology``), its ``val`` and ``p``
+    are operands the stream kernels take; returns the vector width.
+
+    The slice schedule must span the stream at ``topo.slice_edges`` and
+    ``p`` must hold every src row the stream reads."""
+    if p.dim() != 2:
+        raise ValueError(f"p must be [V, K], got {tuple(p.shape)}")
+    if p.shape[0] < topo.src_rows:
+        raise ValueError(f"p has {p.shape[0]} rows; the stream reads src rows up to "
+                         f"{topo.src_rows - 1}")
+    _, _, vec = launch_geometry(int(p.shape[1]), topo.slice_edges)
+    n_edges = topo.num_edges
+    check_operand(p, "p", dom, align=4 * vec)
+    check_operand(val, "val", dom, (n_edges,))
+    check_operand(topo.col, "col", torch.int32, (n_edges,))
+    check_operand(topo.row_ptr, "row_ptr", torch.int32, dims=1)
+    check_operand(topo.nz_rows, "nz_rows", torch.int32, dims=1)
+    check_operand(topo.slice_row, "slice_row", torch.int32,
+                  (max(1, -(-n_edges // topo.slice_edges)) + 1,))
+    return vec
 
 
-def coo_spmv_plain(x_local, y_local, val, p, dst_start, packet_src, *,
-                   v_tile: int, packet: int, n_dst: int,
-                   frac_bits: Optional[int] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: out [n_dst·v_tile, K]."""
-    counts = (dst_start[1:] - dst_start[:-1]).to(torch.int64)
-    packet_dst = torch.repeat_interleave(
-        torch.arange(n_dst, device=p.device), counts)
-    xg = (packet_dst[:, None] * v_tile + _local(x_local)).reshape(-1)
-    yg = (packet_src.to(torch.int64)[:, None] * v_tile + _local(y_local)).reshape(-1)
-    rows = n_dst * v_tile
+def stream_rows(row_ptr: torch.Tensor) -> torch.Tensor:
+    """[E] int64 dst row of every edge of a stream."""
+    counts = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
+    return torch.repeat_interleave(torch.arange(counts.shape[0], device=row_ptr.device),
+                                   counts)
+
+
+def coo_spmv_plain(topo, val, p, *, frac_bits: Optional[int] = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: out [rows, K]."""
+    rows = stream_rows(topo.row_ptr)
     if frac_bits is None:
-        return spmv_float(xg, yg, val.reshape(-1), p, rows)
-    return spmv_fixed(xg, yg, val.reshape(-1), p, rows, QFormat(1, frac_bits))
+        return spmv_float(rows, topo.col, val, p, topo.num_rows)
+    return spmv_fixed(rows, topo.col, val, p, topo.num_rows, QFormat(1, frac_bits))
 
 
 def _declare(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.coo_spmv_launch.argtypes = [vp] * 7 + [i] * 7 + [vp]
+    lib.coo_spmv_launch.argtypes = [vp] * 8 + [i] * 8 + [vp]
     lib.coo_spmv_launch.restype = i
     lib.coo_spmv_error_string.argtypes = [i]
     lib.coo_spmv_error_string.restype = ctypes.c_char_p
 
 
-def coo_spmv_kernel(x_local, y_local, val, p, dst_start, packet_src, *,
-                    v_tile: int, packet: int, n_dst: int,
-                    frac_bits: Optional[int] = None) -> torch.Tensor:
-    """out [n_dst·v_tile, K] = X·P over a BlockedCOO's packets.
+def coo_spmv_kernel(topo, val, p, *, frac_bits: Optional[int] = None) -> torch.Tensor:
+    """out [rows, K] = X·P over a dst stream.
 
-    ``x_local``/``y_local`` [P, packet] int16 (uint16 tile-local bits);
-    ``val`` [P, packet] float32, or int32 raw bits when ``frac_bits`` is set;
-    ``p`` [n_src·v_tile, K] of the same domain; ``dst_start`` [n_dst+1] int32
-    packet offsets per dst tile; ``packet_src`` [P] int32 src tile per packet.
-    A dst tile with no packets comes back as zeros.
+    ``topo`` is the stream's ``StreamTopology`` on p's device (``row_ptr``
+    [rows+1], ``col`` [E] src, the slice schedule and its ``slice_edges``),
+    ``val`` [E] its values, float32 or int32 raw bits when ``frac_bits`` is
+    set; ``p`` [*, K] of the value's domain, holding every src row.  A row
+    with no edge comes back as zeros.
     """
     if p.device.type == "cpu":
-        return coo_spmv_plain(x_local, y_local, val, p, dst_start, packet_src,
-                              v_tile=v_tile, packet=packet, n_dst=n_dst,
-                              frac_bits=frac_bits)
+        return coo_spmv_plain(topo, val, p, frac_bits=frac_bits)
     fixed = frac_bits is not None
     if fixed and not 0 <= frac_bits < 32:
         raise ValueError(f"frac_bits={frac_bits} outside [0, 32)")
-    if p.dim() != 2 or p.shape[0] % v_tile:
-        raise ValueError(f"p must be [n_src*v_tile, K], got {tuple(p.shape)}")
-    n_packets, k = int(packet_src.shape[0]), int(p.shape[1])
-    dom = torch.int32 if fixed else torch.float32
-    check_operand(p, "p", dom)
-    check_operand(val, "val", dom, (n_packets, packet))
-    check_operand(x_local, "x_local", torch.int16, (n_packets, packet))
-    check_operand(y_local, "y_local", torch.int16, (n_packets, packet))
-    check_operand(dst_start, "dst_start", torch.int32, (n_dst + 1,))
-    check_operand(packet_src, "packet_src", torch.int32)
-    threads, smem = launch_geometry(v_tile, k)
-    out = torch.empty((n_dst * v_tile, k), dtype=p.dtype, device=p.device)
-    if n_dst == 0:
+    vec = check_stream(topo, val, p, torch.int32 if fixed else torch.float32)
+    rows, n_edges, k = topo.num_rows, topo.num_edges, int(p.shape[1])
+    out = torch.empty((rows, k), dtype=p.dtype, device=p.device)
+    if rows <= 0:
         return out
+    n_ctas = -(-topo.num_slices // WARPS_PER_CTA)
+    carry = torch.empty((n_ctas, k), dtype=p.dtype, device=p.device)
+    fix_ctas = min(-(-rows * (k // vec) // THREADS), 65_535)
     lib = _build.load("coo_spmv", _declare)
     with torch.cuda.device(p.device):
         status = lib.coo_spmv_launch(
-            x_local.data_ptr(), y_local.data_ptr(), val.data_ptr(), p.data_ptr(),
-            dst_start.data_ptr(), packet_src.data_ptr(), out.data_ptr(),
-            n_dst, v_tile, packet, k, frac_bits if fixed else -1, threads, smem,
+            topo.row_ptr.data_ptr(), topo.col.data_ptr(), val.data_ptr(),
+            topo.nz_rows.data_ptr(), topo.slice_row.data_ptr(), p.data_ptr(),
+            out.data_ptr(), carry.data_ptr(), rows, n_edges, n_ctas, topo.slice_edges,
+            k, frac_bits if fixed else -1, vec, fix_ctas,
             torch.cuda.current_stream(p.device).cuda_stream)
     if status:
         raise RuntimeError(f"coo_spmv launch failed: "

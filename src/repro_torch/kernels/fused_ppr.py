@@ -6,29 +6,34 @@ Replaces ``src/repro/kernels/fused_ppr.py::fused_ppr_iteration`` (bodies
     P_{t+1} = α·X·P_t + α/|V|·(d̄ᵀP_t)·1 + (1−α)·V̄        (eq. 1)
 
 and the per-column (L1, ∞, Σd²) of |P_{t+1} − P_t| that drives early exit.
-The kernels are ``csrc/fused_ppr.cu``; its header maps the TPU design.
+The kernels are ``csrc/fused_ppr.cu`` over ``csrc/dst_stream.cuh``; they read
+the pad-free dst stream of ``kernels/dst_stream.py``, built from this
+module's ``FusedLayout`` through ``fused_schedule``.
 
-Bound on the H100: memory bytes — 2 + 2 + 4 B per real edge and 4 B per pad
-slot (its value only), P and V̄ read once, P_next written once.  The Pallas
-grid ran its
-dangling-mass prologue before the stream; CUDA blocks run concurrently, so
-the CUDA path is two launches per iteration: ``dangling_mass_kernel`` (one
-block, fixed order) and the main kernel (one block per dst block, a shared-
-memory accumulator, the combine in its epilogue, the residual by atomics).
+Bound on the H100: memory bytes — 4 + 4 B per edge (col, val), ``row_ptr``,
+P and V̄ read once, P_next written once.  The Pallas grid ran its dangling-
+mass prologue before the stream; CUDA CTAs run concurrently, so an iteration
+is two launches and no memset: (A) the edge-balanced SpMV (one warp a slice
+of the stream) whose CTAs also fold dangling-mass partials, the last CTA
+summing them; (B) a row-parallel pass that closes rows cut by a slice
+boundary, applies the combine, writes P_next and folds the residual, its
+last CTA summing the partials.  Every sum runs in a fixed order.
 
 Host layout (``FusedLayout``, ``build_fused_layout`` with ``reuse``/``dirty``,
 ``quantize_layout_rows``, ``assemble_value_rows``) is the reference's,
 copied, and stays array-equal to it.  The reference's ``default_interpret``
 has no counterpart: the tensors' device decides.  ``fused_schedule`` derives
-the kernel's per-dst-block row ranges from the layout's step schedule.
+the per-dst-block packet-row ranges from the layout's step schedule.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
-kernel (or raises) for CUDA tensors; ``<wrapper>.launches`` counts launches.
+kernels (or raises) for CUDA tensors; ``<wrapper>.launches`` counts calls
+that launched.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -40,7 +45,8 @@ from repro_torch.core.ppr import _fixed_combine, _fixed_consts, _float_combine
 from repro_torch.core.spmv import spmv_fixed, spmv_float
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_operand
-from repro_torch.kernels.coo_spmv import launch_geometry
+from repro_torch.kernels.coo_spmv import (WARPS_PER_CTA, check_stream, launch_geometry,
+                                          stream_rows)
 
 __all__ = [
     "FusedLayout", "build_fused_layout", "quantize_layout_rows",
@@ -238,7 +244,7 @@ def quantize_layout_rows(layout: FusedLayout, fmt: QFormat,
 
 
 def fused_schedule(layout: FusedLayout):
-    """(row_off [n_blk+1] int32, row_src [num_rows-1] int32) for the kernel.
+    """(row_off [n_blk+1] int32, row_src [num_rows-1] int32) of the packet rows.
 
     Dst block d owns packet rows [row_off[d], row_off[d+1]); an empty block
     owns none (its sentinel step reads the all-zero row, which contributes
@@ -255,6 +261,37 @@ def fused_schedule(layout: FusedLayout):
 
 
 # ---------------------------------------------------------------------------
+# device scratch shared by the launches
+# ---------------------------------------------------------------------------
+_TICKETS = {}        # (device, stream) → int32 [3], zero between launches
+# kernel B's CTA, as csrc/fused_ppr.cu is compiled with
+COMBINE_THREADS = _build.csrc_constants("fused_ppr.cu")["kCombineThreads"]
+
+
+def _tickets(device: torch.device, stream) -> torch.Tensor:
+    """Zeroed words the kernels' last-CTA folds count arrivals on, one set a
+    stream: [0] kernel A's dangling mass, [1] kernel B's residual, [2] the
+    standalone dangling mass.  Each launch leaves its word at 0 again."""
+    key = (str(device), stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(3, dtype=torch.int32, device=device)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _dangling_split(n_dang: int, max_parts: int):
+    """(rows a CTA, CTAs) folding ``n_dang`` dangling rows into partials: at
+    least 256 rows a CTA, so that few CTAs meet at the last-CTA fold."""
+    per_cta = max(256, -(-n_dang // max(1, max_parts)))
+    return per_cta, max(1, -(-n_dang // per_cta))
+
+
+# ---------------------------------------------------------------------------
 # (a) dangling mass
 # ---------------------------------------------------------------------------
 def dangling_mass_plain(p: torch.Tensor, dang_idx: torch.Tensor, *,
@@ -268,24 +305,29 @@ def dangling_mass_plain(p: torch.Tensor, dang_idx: torch.Tensor, *,
 
 def dangling_mass(p: torch.Tensor, dang_idx: torch.Tensor, *,
                   fixed: bool) -> torch.Tensor:
-    """[K] dangling mass of ``p`` [V, K] over the int32 vertex list ``dang_idx``."""
+    """[K] dangling mass of ``p`` [V, K] over the int32 vertex list ``dang_idx``.
+
+    On the card this is kernel A's dangling fold alone, in one launch: CTAs
+    fold slices of ``dang_idx`` into partials, the last CTA sums them in a
+    fixed order.  The fused iteration runs the same code inside kernel A."""
     if p.device.type == "cpu":
         return dangling_mass_plain(p, dang_idx, fixed=fixed)
     dom = torch.int32 if fixed else torch.float32
-    check_operand(p, "p", dom)
-    check_operand(dang_idx, "dang_idx", torch.int32)
-    if p.dim() != 2:
-        raise ValueError(f"p must be [V, K], got {tuple(p.shape)}")
+    check_operand(p, "p", dom, dims=2)
+    check_operand(dang_idx, "dang_idx", torch.int32, dims=1)
     k = int(p.shape[1])
-    if not 1 <= k <= 1024:
-        raise ValueError(f"K={k} columns: the kernels take 1 <= K <= 1024")
+    launch_geometry(k, 32)
+    n_dang = int(dang_idx.shape[0])
+    per_cta, n_part = _dangling_split(n_dang, 4 * _sm_count(p.device))
     dm = torch.empty(k, dtype=p.dtype, device=p.device)
+    dm_part = torch.empty((n_part, k), dtype=p.dtype, device=p.device)
+    stream = torch.cuda.current_stream(p.device)
+    tickets = _tickets(p.device, stream)
     lib = _build.load("fused_ppr", _declare)
     with torch.cuda.device(p.device):
         status = lib.dangling_mass_launch(
-            p.data_ptr(), dang_idx.data_ptr(), int(dang_idx.shape[0]), k,
-            int(fixed), dm.data_ptr(), k * max(1, 1024 // k),
-            torch.cuda.current_stream(p.device).cuda_stream)
+            p.data_ptr(), dang_idx.data_ptr(), n_dang, per_cta, n_part, k, int(fixed),
+            dm_part.data_ptr(), dm.data_ptr(), tickets[2:].data_ptr(), stream.cuda_stream)
     _raise_on(lib, status, "dangling_mass")
     dangling_mass.launches += 1
     return dm
@@ -309,26 +351,18 @@ def _combine_consts(fmt: Optional[QFormat], num_vertices: int, alpha: float):
     return (a_raw, aov_raw, oma_raw, fmt.max_raw, 0.0, 0.0, 0.0)
 
 
-def fused_ppr_plain(row_off, row_src, x2, y2, val2, dang_idx, vmat, p, *,
-                    v_tile: int, packet: int, n_blk: int, num_vertices: int,
-                    alpha: float, fmt: Optional[QFormat] = None):
+def fused_ppr_plain(topo, val, dang_idx, vmat, p, *, alpha: float,
+                    fmt: Optional[QFormat] = None):
     """The fused iteration in plain PyTorch: ``(P_next [V,K], res [3,K] f32)``."""
-    n_rows = int(row_src.shape[0])
-    row_dst = torch.repeat_interleave(
-        torch.arange(n_blk, device=p.device),
-        (row_off[1:] - row_off[:-1]).to(torch.int64))
-    xg = (row_dst[:, None] * v_tile + (x2[:n_rows].to(torch.int64) & 0xFFFF)).reshape(-1)
-    yg = (row_src.to(torch.int64)[:, None] * v_tile
-          + (y2[:n_rows].to(torch.int64) & 0xFFFF)).reshape(-1)
-    val = val2[:n_rows].reshape(-1)
+    rows, v = stream_rows(topo.row_ptr), topo.num_rows
     dm = dangling_mass_plain(p, dang_idx, fixed=fmt is not None)
     if fmt is None:
-        xp = spmv_float(xg, yg, val, p, num_vertices)
-        pn = _float_combine(xp, dm, vmat, num_vertices=num_vertices, alpha=alpha)
+        xp = spmv_float(rows, topo.col, val, p, v)
+        pn = _float_combine(xp, dm, vmat, num_vertices=v, alpha=alpha)
         diff = torch.abs(pn - p)
     else:
-        a_raw, oma_raw, aov_raw = _fixed_consts(fmt, num_vertices, alpha)
-        xp = spmv_fixed(xg, yg, val, p, num_vertices, fmt)
+        a_raw, oma_raw, aov_raw = _fixed_consts(fmt, v, alpha)
+        xp = spmv_fixed(rows, topo.col, val, p, v, fmt)
         pn = _fixed_combine(xp, dm, vmat, fmt=fmt, alpha_raw=a_raw,
                             one_minus_alpha_raw=oma_raw, alpha_over_v_raw=aov_raw)
         diff = torch.abs(widen_u32(pn) - widen_u32(p)).to(torch.float32)
@@ -336,50 +370,55 @@ def fused_ppr_plain(row_off, row_src, x2, y2, val2, dang_idx, vmat, p, *,
     return pn, res
 
 
-def fused_ppr_iteration(row_off, row_src, x2, y2, val2, dang_idx, vmat, p, *,
-                        v_tile: int, packet: int, n_blk: int, num_vertices: int,
-                        alpha: float, fmt: Optional[QFormat] = None):
+def fused_ppr_iteration(topo, val, dang_idx, vmat, p, *, alpha: float,
+                        fmt: Optional[QFormat] = None):
     """One full eq. (1) iteration: ``(P_next [V, K], res [3, K] float32)``.
 
-    ``row_off``/``row_src`` come from ``fused_schedule``; ``x2``/``y2``
-    [num_rows, packet] int16 (uint16 tile-local bits); ``val2`` [num_rows,
-    packet] float32, or int32 raw bits for ``fmt``; ``dang_idx`` int32 list of
-    dangling vertices; ``vmat``/``p`` [V, K] in the same domain.  ``res`` rows
-    are (L1, ∞, Σd²) of |P_next − P| per column, raw units for fixed point; a
-    zero ∞ row is an exact bit-equality certificate.
+    ``topo`` is the ``StreamTopology`` of a ``DstStream`` over |V| rows on
+    p's device, ``val`` [E] its values, float32 or int32 raw bits for
+    ``fmt``; ``dang_idx`` the int32 list of dangling vertices; ``vmat``/``p``
+    [V, K] in the value's domain.  ``res`` rows are (L1, ∞, Σd²) of
+    |P_next − P| per column, raw units for fixed point; a zero ∞ row is an
+    exact bit-equality certificate.
     """
-    kw = dict(v_tile=v_tile, packet=packet, n_blk=n_blk,
-              num_vertices=num_vertices, alpha=alpha, fmt=fmt)
     if p.device.type == "cpu":
-        return fused_ppr_plain(row_off, row_src, x2, y2, val2, dang_idx, vmat, p, **kw)
+        return fused_ppr_plain(topo, val, dang_idx, vmat, p, alpha=alpha, fmt=fmt)
     fixed = fmt is not None
     dom = torch.int32 if fixed else torch.float32
+    num_vertices = topo.num_rows
     if p.dim() != 2 or p.shape[0] != num_vertices:
-        raise ValueError(f"p must be [{num_vertices}, K], got {tuple(p.shape)}")
+        raise ValueError(f"p must be [{num_vertices}, K] (the stream's rows), "
+                         f"got {tuple(p.shape)}")
+    vec = check_stream(topo, val, p, dom)
+    check_operand(vmat, "vmat", dom, p.shape, align=4 * vec)
+    check_operand(dang_idx, "dang_idx", torch.int32, dims=1)
     k = int(p.shape[1])
-    n_rows = int(x2.shape[0])
-    check_operand(p, "p", dom)
-    check_operand(vmat, "vmat", dom, p.shape)
-    check_operand(val2, "val2", dom, (n_rows, packet))
-    check_operand(x2, "x2", torch.int16, (n_rows, packet))
-    check_operand(y2, "y2", torch.int16, (n_rows, packet))
-    check_operand(row_off, "row_off", torch.int32, (n_blk + 1,))
-    check_operand(row_src, "row_src", torch.int32)
-    if row_src.shape[0] > n_rows:
-        raise ValueError("row_src names more rows than x2 holds")
-    threads, smem = launch_geometry(v_tile, k, extra_words=3 * k)
-    dm = dangling_mass(p, dang_idx, fixed=fixed)
+    n_ctas = -(-topo.num_slices // WARPS_PER_CTA)
+    n_dang = int(dang_idx.shape[0])
+    per_cta, n_part = _dangling_split(n_dang, n_ctas)
+    row_lanes = COMBINE_THREADS // min(k // vec, COMBINE_THREADS)
+    combine_ctas = max(1, min(-(-num_vertices // row_lanes), 2 * _sm_count(p.device)))
+    new = dict(dtype=p.dtype, device=p.device)
+    xp = torch.empty_like(p)
+    carry = torch.empty((n_ctas, k), **new)
+    dm_part = torch.empty((n_part, k), **new)
+    dm = torch.empty(k, **new)
     p_next = torch.empty_like(p)
-    res = torch.zeros((3, k), dtype=torch.float32, device=p.device)
+    res_part = torch.empty((combine_ctas, 3, k), dtype=torch.float32, device=p.device)
+    res = torch.empty((3, k), dtype=torch.float32, device=p.device)
+    stream = torch.cuda.current_stream(p.device)
+    tickets = _tickets(p.device, stream)
     lib = _build.load("fused_ppr", _declare)
     with torch.cuda.device(p.device):
         status = lib.fused_ppr_launch(
-            row_off.data_ptr(), row_src.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-            val2.data_ptr(), p.data_ptr(), vmat.data_ptr(), dm.data_ptr(),
-            p_next.data_ptr(), res.data_ptr(), n_blk, num_vertices, v_tile,
-            packet, k, fmt.frac_bits if fixed else -1,
-            *_combine_consts(fmt, num_vertices, alpha),
-            threads, smem, torch.cuda.current_stream(p.device).cuda_stream)
+            topo.row_ptr.data_ptr(), topo.col.data_ptr(), val.data_ptr(),
+            topo.nz_rows.data_ptr(), topo.slice_row.data_ptr(), dang_idx.data_ptr(),
+            vmat.data_ptr(), p.data_ptr(), xp.data_ptr(), carry.data_ptr(),
+            dm_part.data_ptr(), dm.data_ptr(), p_next.data_ptr(), res_part.data_ptr(),
+            res.data_ptr(), tickets.data_ptr(), num_vertices,
+            topo.num_edges, n_ctas, topo.slice_edges, k, n_dang, per_cta, n_part,
+            combine_ctas, -(-num_vertices // combine_ctas), fmt.frac_bits if fixed else -1,
+            *_combine_consts(fmt, num_vertices, alpha), vec, stream.cuda_stream)
     _raise_on(lib, status, "fused_ppr_iteration")
     fused_ppr_iteration.launches += 1
     return p_next, res
@@ -390,10 +429,10 @@ fused_ppr_iteration.launches = 0
 
 def _declare(lib) -> None:
     vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.dangling_mass_launch.argtypes = [vp, vp, i, i, i, vp, i, vp]
+    lib.dangling_mass_launch.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp]
     lib.dangling_mass_launch.restype = i
-    lib.fused_ppr_launch.argtypes = ([vp] * 10 + [i] * 6 + [u] * 4 + [f] * 3
-                                     + [i, i, vp])
+    lib.fused_ppr_launch.argtypes = ([vp] * 16 + [i] * 11 + [u] * 4 + [f] * 3
+                                     + [i, vp])
     lib.fused_ppr_launch.restype = i
     lib.fused_ppr_error_string.argtypes = [i]
     lib.fused_ppr_error_string.restype = ctypes.c_char_p

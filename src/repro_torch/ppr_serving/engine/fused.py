@@ -4,16 +4,18 @@ Counterpart of ``repro.ppr_serving.engine.pallas``: family ``"fused"`` (the
 reference's ``"pallas"``), keys ``fused_float``/``fused_fixed``.  The family
 serves the same waves as "single" but through
 ``repro_torch.kernels.fused_ppr.fused_ppr_iteration``: dangling-mass fold,
-SpMV, the eq. (1) combine and the (L1, ∞, Σd²) residual over the dst-major
-packetized edge stream — on CUDA the hand-written kernels, on the CPU their
-plain versions.  The fixed member is bit-identical (raw bits) to
-``FixedEngine``; the float member matches ``FloatEngine`` to f32
+SpMV, the eq. (1) combine and the (L1, ∞, Σd²) residual over the pad-free
+dst stream (``kernels/dst_stream.py``) — on CUDA the hand-written kernels,
+on the CPU their plain versions.  The fixed member is bit-identical (raw
+bits) to ``FixedEngine``; the float member matches ``FloatEngine`` to f32
 accumulation-order noise.
 
 State layout (on ``FusedRegisteredGraph``): the packetized ``FusedLayout``
-plus device uploads of its kernel schedule and topology, the float value
-rows, and one raw value row-set per prepared Q format.  The delta refresh
-(``refresh_fused``) comes with the delta slice.
+on the host, the dst stream built from it, and on the device only the
+stream: its topology (``row_ptr``, ``col``, slice schedule), the dangling
+list, the float values and one raw value array per prepared Q format.  The
+delta refresh (``refresh_fused``, which rebuilds the stream) comes with the
+delta slice.
 
 The early-exit driver reuses the kernel's residual output instead of
 ``ConvergenceMonitor``'s separate device reductions, with identical exit
@@ -33,13 +35,8 @@ from repro_torch.autotune.convergence import ConvergencePolicy, states_equal
 from repro_torch.core.coo import COOGraph
 from repro_torch.core.fixed_point import QFormat
 from repro_torch.core.ppr import personalization_matrix, personalization_matrix_fixed
-from repro_torch.kernels.fused_ppr import (
-    assemble_value_rows,
-    build_fused_layout,
-    fused_ppr_iteration,
-    fused_schedule,
-    quantize_layout_rows,
-)
+from repro_torch.kernels.dst_stream import DstStream, build_dst_stream
+from repro_torch.kernels.fused_ppr import build_fused_layout, fused_ppr_iteration
 from repro_torch.ppr_serving.engine.base import WaveEngine, WavePlan, register_engine
 from repro_torch.ppr_serving.graphs import RegisteredGraph
 
@@ -49,11 +46,11 @@ DEFAULT_V_TILE = 512
 
 
 class FusedRegisteredGraph(RegisteredGraph):
-    """Registered graph carrying the fused dst-major packetized layout.
+    """Registered graph carrying the fused layouts.
 
     Defers the full-layout upload (fused waves never read it) and owns the
-    fused caches: the host ``FusedLayout``, its device schedule/topology, the
-    float value rows, and per-format raw value rows."""
+    fused caches: the host ``FusedLayout``, the dst stream built from it, and
+    the stream's device uploads (topology once, values once per format)."""
 
     engine_family = "fused"
 
@@ -63,9 +60,8 @@ class FusedRegisteredGraph(RegisteredGraph):
                  v_tile: int = DEFAULT_V_TILE, device="cuda"):
         self.v_tile = int(v_tile)
         self._fused_layout = None
-        self._fused_dev = None                 # schedule + topology uploads
-        self._fused_val_dev = {}               # None | QFormat → [rows, packet]
-        self._fused_raw_rows = {}              # QFormat → per-dst-block rows
+        self._fused_stream: Optional[DstStream] = None
+        self._dang_idx = None
         super().__init__(name, g, packet=packet, device=device)
 
     # ---- fused caches ------------------------------------------------------
@@ -75,39 +71,27 @@ class FusedRegisteredGraph(RegisteredGraph):
                                                     self.packet)
         return self._fused_layout
 
+    def fused_stream(self) -> DstStream:
+        """The pad-free dst stream of the fused layout (host)."""
+        if self._fused_stream is None:
+            self._fused_stream = build_dst_stream(self.fused_layout())
+        return self._fused_stream
+
     def fused_topology(self):
-        """Device uploads of the kernel schedule + localized edge topology
-        (16-bit tile-local indices: v_tile ≤ 65536 always holds, since the
-        kernel's v_tile x K accumulator must fit in shared memory)."""
-        if self._fused_dev is None:
-            lay = self.fused_layout()
-            row_off, row_src = fused_schedule(lay)
-            dang_idx = np.nonzero(self.graph.dangling)[0].astype(np.int32)
+        """The stream's ``StreamTopology`` on the graph's device (``row_ptr``,
+        ``col`` and the slice schedule, uploaded once)."""
+        return self.fused_stream().topology(self.device)
 
-            def up(a):
-                return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
-
-            self._fused_dev = {
-                "row_off": up(row_off),
-                "row_src": up(row_src),
-                "x2": up(lay.x2.astype(np.uint16).view(np.int16)),
-                "y2": up(lay.y2.astype(np.uint16).view(np.int16)),
-                "dang_idx": up(dang_idx),
-            }
-        return self._fused_dev
+    def fused_dangling(self):
+        """The int32 list of dangling vertices on the graph's device."""
+        if self._dang_idx is None:
+            self._dang_idx = torch.as_tensor(
+                np.nonzero(self.graph.dangling)[0].astype(np.int32), device=self.device)
+        return self._dang_idx
 
     def fused_values(self, fmt: Optional[QFormat] = None):
-        """[num_rows, packet] value operand — f32 (fmt=None) or raw int32 bits."""
-        if fmt not in self._fused_val_dev:
-            lay = self.fused_layout()
-            if fmt is None:
-                host = lay.val2
-            else:
-                rows = quantize_layout_rows(lay, fmt)
-                self._fused_raw_rows[fmt] = rows
-                host = assemble_value_rows(rows, lay.packet).view(np.int32)
-            self._fused_val_dev[fmt] = torch.as_tensor(host, device=self.device)
-        return self._fused_val_dev[fmt]
+        """[E] value operand — f32 (fmt=None) or raw int32 bits."""
+        return self.fused_stream().values(self.device, fmt)
 
 
 # ---------------------------------------------------------------------------
@@ -117,16 +101,12 @@ def _bind_fused_step(rg: FusedRegisteredGraph, fmt: Optional[QFormat],
                      alpha: float, cell: dict):
     """Step closure over the graph's current fused device state.  Each call
     parks the kernel's [3, K] residual in ``cell`` for the iterate driver."""
-    lay = rg.fused_layout()
-    dev = rg.fused_topology()
-    val2 = rg.fused_values(fmt)
-    statics = dict(v_tile=lay.v_tile, packet=lay.packet, n_blk=lay.n_blk,
-                   num_vertices=lay.num_vertices, alpha=alpha, fmt=fmt)
+    topo, dang_idx = rg.fused_topology(), rg.fused_dangling()
+    val = rg.fused_values(fmt)
 
     def step(Vmat, P):
-        P_next, res = fused_ppr_iteration(
-            dev["row_off"], dev["row_src"], dev["x2"], dev["y2"], val2,
-            dev["dang_idx"], Vmat, P, **statics)
+        P_next, res = fused_ppr_iteration(topo, val, dang_idx, Vmat, P, alpha=alpha,
+                                          fmt=fmt)
         cell["res"] = res
         return P_next
 
@@ -186,7 +166,7 @@ def _make_fused_iterate(engine: WaveEngine, iterations: int,
 # ---------------------------------------------------------------------------
 @register_engine
 class FusedFloatEngine(WaveEngine):
-    """float32 fused iterations over the packetized edge stream."""
+    """float32 fused iterations over the dst stream."""
 
     key = "fused_float"
     family = "fused"
@@ -197,6 +177,7 @@ class FusedFloatEngine(WaveEngine):
 
     def prepare(self, rg, fmt: Optional[QFormat] = None) -> None:
         rg.fused_topology()
+        rg.fused_dangling()
         rg.fused_values(None)
 
     def plan(self, rg, fmt: Optional[QFormat] = None, *, alpha: float,
@@ -229,6 +210,7 @@ class FusedFixedEngine(WaveEngine):
         if fmt is None:
             raise ValueError(f"{self.key!r} engine needs a concrete Q format")
         rg.fused_topology()
+        rg.fused_dangling()
         rg.fused_values(fmt)
 
     def plan(self, rg, fmt: Optional[QFormat] = None, *, alpha: float,

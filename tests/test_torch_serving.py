@@ -193,7 +193,10 @@ def test_fused_layout_covers_every_edge_once():
     assert real == rg.source.num_edges
     assert int(lay.step_first.sum()) == lay.n_blk
     assert int(lay.step_last.sum()) == lay.n_blk
-    assert rg.fused_topology()["x2"].dtype == torch.int16
+    # the device holds the pad-free stream only: one slot a real edge
+    topo = rg.fused_topology()
+    assert topo.col.dtype == torch.int32 and topo.num_rows == rg.num_vertices
+    assert topo.num_edges == rg.fused_values(TFMT).shape[0] == real
 
 
 # ---------------------------------------------------------------------------
