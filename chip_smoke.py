@@ -32,22 +32,29 @@ exits non-zero.  It prints, in order:
    with the host's enqueue hidden behind a queued sleep; the least time the
    card could take (bytes over 3.35 TB/s), the device operations one call
    runs (``torch.profiler``), and the service's waves/s and queries/s;
-6. the LM kernels against their plain versions at gemma-2b's shapes:
+6. the tensor-core report of the two LM kernel libraries (ptxas'
+   registers, shared memory and spills of every kernel; the HGMMA count of
+   each kernel's SASS where the toolkit has ``cuobjdump``: a bf16 kernel
+   without one, or a spilling head_dim-256 attention kernel, fails); then
+   the LM kernels against their plain versions at gemma-2b's shapes:
    ``flash_attention_gqa`` (B=2, S=4096, d=256; H=8/KV=1 causal, and
    H=8/KV=4 with gemma3-4b's window of 1024) and ``quantized_matmul``
-   (M of 128 and 4096 against gemma-2b's w_gate/w_up and w_down), each in
-   float32 and bfloat16, with kernel, plain and library times and the bound
-   (bytes over 3.35 TB/s or FLOPs over the type's peak, the larger);
+   (M of 128 and 4096 against gemma-2b's w_gate/w_up and w_down, with the
+   K split each shape gets), each in float32 and bfloat16, with kernel
+   (``ms`` and ``device_ms``), plain and library times and the bound (bytes
+   over 3.35 TB/s or FLOPs over the type's peak, the larger);
 7. gemma-2b served at full width (18 layers, 2.51 B float32 master
    parameters drawn on the card from seed 0): (a) in float32, decode equals
    forward and ``ServingEngine`` equals per-request greedy decoding; (b)
    layer 0's q/k/v of a B=2, S=2048 prefill through the model's ``_attend``
    and through ``flash_attention_gqa``, and its MLP through
-   ``quantized_matmul`` (the launches counted here are the kernels' path
-   launches); (c) in bfloat16, ``launch/serve.py``'s defaults timed over
-   several passes (a smoke reading of a host-bound loop): tokens/s, prefill
-   ms, decode-step ms p50/p95; (d) the same at a serving shape: one wave of
-   32 requests, 1,024-token prompts, 128 new tokens each;
+   ``quantized_matmul``; then the same layer in bfloat16 through the
+   tensor-core kernels, each call held to its plain version (the launches
+   counted over both passes are the kernels' path launches); (c) in
+   bfloat16, ``launch/serve.py``'s defaults timed over several passes (a
+   smoke reading of a host-bound loop): tokens/s, prefill ms, decode-step
+   ms p50/p95; (d) the same at a serving shape: one wave of 32 requests,
+   1,024-token prompts, 128 new tokens each;
 8. a ``{"kernels": [...]}`` JSON line, then the card line, then the
    ``{"ok": true, ...}`` line last.
 
@@ -728,15 +735,99 @@ def lm_ops_per_call(torch, dev):
                 torch, lambda: ops.quantized_matmul(a, qw.q, qw.scale))[0]}
 
 
+def _lm_timings(torch, row, kernel, library):
+    """An LM kernel row's ``ms`` and ``device_ms`` (the spans of the PPR
+    rows) and its library call's ``library_ms`` and ``library_device_ms``."""
+    row["ms"] = _time_ms(torch, kernel)
+    row["device_ms"] = _time_ms(torch, kernel, hide_host=True)
+    row["library_ms"] = _time_ms(torch, library)
+    row["library_device_ms"] = _time_ms(torch, library, hide_host=True)
+
+
+def _split_sweep(torch, name, call, want, tol, planned, steps):
+    """The kernel with its K split forced to 1, half, the planned count and
+    twice it (within [1, steps]): each held to the plain version, timed as a
+    call (``ms``) and on the device (``device_ms``)."""
+    from unittest import mock
+
+    from repro_torch.kernels import fixed_matmul
+
+    sweep = {}
+    for s in sorted({1, max(1, planned // 2), planned, min(steps, 2 * planned)}):
+        with mock.patch.object(fixed_matmul, "plan_splits", lambda *_, s=s: s):
+            _check_close(torch, f"{name} at {s} splits", call(), want, tol)
+            sweep[s] = dict(ms=_time_ms(torch, call),
+                            device_ms=_time_ms(torch, call, hide_host=True))
+    return sweep
+
+
+# the tensor-core kernel of each library, by a part of its mangled name
+TC_KERNELS = {"flash_attention": "flash_attention_tc_kernel",
+              "fixed_matmul": "quantized_matmul_tc_kernel"}
+
+
+def tensor_core_report(torch):
+    """ptxas' registers, shared memory and spills of every kernel in the two
+    tensor-core libraries, and the count of HGMMA (wgmma) instructions in
+    each kernel's SASS where the toolkit has cuobjdump.  Fails if a bf16
+    kernel has no HGMMA, or if the head_dim 256 attention kernel spills."""
+    import re
+    from repro_torch.kernels import _build
+
+    report = {}
+    for lib in TC_KERNELS:
+        fn = None
+        for line in _build.build_log(lib).splitlines():
+            hit = re.search(r"Compiling entry function '(\w+)'", line)
+            if hit:
+                fn = hit.group(1)
+                report[fn] = dict(library=lib)
+            elif fn and "spill" in line:
+                spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+                report[fn]["spill_bytes"] = sum(spills)
+            elif fn and "registers" in line:
+                report[fn]["ptxas"] = line.split("info    :")[-1].strip()
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    if cuobjdump.is_file():
+        for lib in TC_KERNELS:
+            so = _build.build_all((lib,))[lib]
+            sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                                  text=True, timeout=300).stdout
+            fn = None
+            for line in sass.splitlines():
+                if "Function :" in line:
+                    fn = line.split("Function :")[1].strip()
+                    report.setdefault(fn, dict(library=lib))["hgmma"] = 0
+                elif fn and "HGMMA" in line:
+                    report[fn]["hgmma"] += 1
+    else:
+        print(f"[tensor-cores] {cuobjdump} not found: HGMMA not counted")
+    for fn, r in sorted(report.items()):
+        print(f"[tensor-cores] {fn}: {r.get('ptxas', '')}; spill bytes "
+              f"{r.get('spill_bytes')}; HGMMA {r.get('hgmma', 'not counted')}")
+    for lib, part in TC_KERNELS.items():
+        tc = {fn: r for fn, r in report.items() if part in fn}
+        if not tc:
+            _fail(f"no {part} in the ptxas report of {lib}")
+        if cuobjdump.is_file() and any(r.get("hgmma", 0) == 0 for r in tc.values()):
+            _fail(f"{part}: a bf16 kernel with no HGMMA instruction")
+    d256 = [r for fn, r in report.items() if "flash_attention_tc_kernelILi256E" in fn]
+    if not d256 or d256[0].get("spill_bytes") != 0:
+        _fail(f"the head_dim 256 attention kernel spills or is missing: {d256}")
+    return report
+
+
 def lm_kernel_phase(torch, dev):
     import torch.nn.functional as F
 
     from repro_torch.core.quantization import quantize_weights
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fixed_matmul import quantized_matmul_plain
+    from repro_torch.kernels.fixed_matmul import (K_STEP, TILE_M, TILE_N, cta_slots,
+                                                  plan_splits, quantized_matmul_plain)
     from repro_torch.kernels.flash_attention import (flash_attention_gqa,
                                                      flash_attention_gqa_plain)
 
+    report = tensor_core_report(torch)
     gen = torch.Generator(dev).manual_seed(6)
     rows = []
     for name, b, s, h, kv, d, causal, window in ATTN_CASES:
@@ -765,15 +856,15 @@ def lm_kernel_phase(torch, dev):
             es = q.element_size()
             bound, by = _roofline(2 * q.numel() * es + 2 * k.numel() * es,
                                   4 * d * b * h * _valid_pairs(s, causal, window), dom)
-            rows.append(dict(
+            row = dict(
                 kernel="flash_attention", case=name, domain=dom, max_abs_err=err,
-
                 shape=dict(B=b, S=s, H=h, KV=kv, d=d, causal=causal, window=window),
-                ms=_time_ms(torch, lambda: flash_attention_gqa(q, k, v, **kw)),
                 plain_ms=_time_ms(torch, lambda: flash_attention_gqa_plain(q, k, v, **kw),
                                   repeats=5),
-                library_ms=_time_ms(torch, library), library="F.scaled_dot_product_attention",
-                library_max_abs_diff=lib_diff, bound_ms=bound, bound_by=by))
+                library="F.scaled_dot_product_attention", library_max_abs_diff=lib_diff,
+                bound_ms=bound, bound_by=by)
+            _lm_timings(torch, row, lambda: flash_attention_gqa(q, k, v, **kw), library)
+            rows.append(row)
             del q, k, v, got
     for name, m, kdim, n in MM_CASES:
         w = torch.randn((kdim, n), generator=gen, device=dev) / kdim ** 0.5
@@ -787,21 +878,43 @@ def lm_kernel_phase(torch, dev):
                                LM_TOL["quantized_matmul"][dom])
             bound, by = _roofline(a.numel() * a.element_size() + kdim * n + n * 4 + m * n * 4,
                                   2 * m * kdim * n, dom)
-            rows.append(dict(
+            slots = cta_slots(a.device, dt == torch.bfloat16)
+            splits = plan_splits(m, n, kdim, K_STEP[dt], slots)
+            row = dict(
                 kernel="quantized_matmul", case=name, domain=dom, max_abs_err=err,
-
-                shape=dict(M=m, K=kdim, N=n),
-                ms=_time_ms(torch, lambda: ops.quantized_matmul(a, qw.q, qw.scale)),
+                shape=dict(M=m, K=kdim, N=n), splits=splits, cta_slots=slots,
                 plain_ms=_time_ms(torch, lambda: quantized_matmul_plain(a, qw.q, qw.scale)),
-                library_ms=_time_ms(torch, lambda: (a @ qw.q.to(a.dtype)) * qw.scale),
-                library="(a @ w_q.to(a.dtype)) * scale", bound_ms=bound, bound_by=by))
+                library="(a @ w_q.to(a.dtype)) * scale", bound_ms=bound, bound_by=by)
+
+            def kernel():
+                return ops.quantized_matmul(a, qw.q, qw.scale)
+
+            _lm_timings(torch, row, kernel, lambda: (a @ qw.q.to(a.dtype)) * qw.scale)
+            w_cast = qw.q.to(dt)      # the library's GEMM alone, on weights cast before
+            row["gemm_device_ms"] = _time_ms(torch, lambda: a @ w_cast, hide_host=True)
+            del w_cast
+            if -(-m // TILE_M) * -(-n // TILE_N) < slots:    # the planner could split
+                row["split_sweep"] = _split_sweep(
+                    torch, f"quantized_matmul {name} {dom}", kernel, want,
+                    LM_TOL["quantized_matmul"][dom], splits, -(-kdim // K_STEP[dt]))
+            rows.append(row)
             del a, got, want
     torch.cuda.empty_cache()
     for r in rows:
-        print(f"[lm-kernels] {r['kernel']} {r['case']} {r['domain']}: ms {r['ms']:.4f} "
-              f"plain {r['plain_ms']:.4f} library {r['library_ms']:.4f} bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']}) max abs err {r['max_abs_err']:.3e}")
-    return rows
+        split = (f" splits {r['splits']} (of {r['cta_slots']} CTA slots)"
+                 if "splits" in r else "")
+        gemm = (f"; its GEMM alone on cast weights {r['gemm_device_ms']:.4f}"
+                if "gemm_device_ms" in r else "")
+        print(f"[lm-kernels] {r['kernel']} {r['case']} {r['domain']}{split}: ms {r['ms']:.4f} "
+              f"device_ms {r['device_ms']:.4f} plain {r['plain_ms']:.4f} library "
+              f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f}"
+              f"{gemm}) bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}, {r['bound_ms'] / r['device_ms']:.1%} "
+              f"of device_ms) max abs err {r['max_abs_err']:.3e}")
+        for s, t in r.get("split_sweep", {}).items():
+            print(f"[lm-kernels]   {r['case']} {r['domain']} forced to {s} splits: "
+                  f"ms {t['ms']:.4f} device_ms {t['device_ms']:.4f}")
+    return rows, report
 
 
 # ---------------------------------------------------------------------------
@@ -832,7 +945,8 @@ def lm_serving_phase(torch, np, dev, passes=5):
     from repro_torch.configs import get_config
     from repro_torch.core.quantization import quantize_weights
     from repro_torch.kernels import launch_counts, ops, reset_launch_counts
-    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.kernels.fixed_matmul import quantized_matmul_plain
+    from repro_torch.kernels.flash_attention import flash_attention_gqa, flash_attention_gqa_plain
     from repro_torch.models import build_model
     from repro_torch.models.attention import _attend, _project_qkv
     from repro_torch.models.common import act_fn, norm
@@ -903,10 +1017,33 @@ def lm_serving_phase(torch, np, dev, passes=5):
 
     m = qmm(act_fn(qmm(x2, "w_gate"), cfg32.act) * qmm(x2, "w_up"), "w_down")
     torch.cuda.synchronize()
+    f32_counts = launch_counts()
+    # the same layer in bfloat16 through the tensor-core kernels, each call
+    # held to its plain version on the same inputs
+    bf = torch.bfloat16
+    q16, k16, v16, x16 = (t.to(bf) for t in (q, k, v, x2))
+    errs16 = {"flash_attention": _check_close(
+        torch, "layer-0 flash_attention bf16", flash_attention_gqa(q16, k16, v16, causal=True),
+        flash_attention_gqa_plain(q16, k16, v16, causal=True),
+        LM_TOL["flash_attention"]["bf16"])}
+
+    def qmm16(a, n):
+        got = qmm(a, n)
+        errs16[n] = _check_close(torch, f"layer-0 quantized_matmul {n} bf16", got,
+                                 quantized_matmul_plain(a, qw[n].q, qw[n].scale),
+                                 LM_TOL["quantized_matmul"]["bf16"])
+        return got
+
+    h16 = (act_fn(qmm16(x16, "w_gate"), cfg32.act) * qmm16(x16, "w_up")).to(bf)
+    qmm16(h16, "w_down")
+    torch.cuda.synchronize()
     path_counts = launch_counts()
+    bf16_counts = {n: path_counts[n] - f32_counts[n] for n in path_counts}
     for name in ("flash_attention", "quantized_matmul"):
-        if path_counts[name] == 0:
-            _fail(f"the LM path launched {name} no time")
+        if f32_counts[name] == 0 or bf16_counts[name] == 0:
+            _fail(f"the LM path launched {name} no time in float32 or in bfloat16")
+    print(f"[lm] (b) layer 0 in bf16 through the tensor-core kernels vs their plain "
+          f"versions, max abs err: {errs16}; launches f32 {f32_counts}, bf16 {bf16_counts}")
     att_err = float((att - ref).abs().max())
     if not torch.allclose(att, ref, rtol=2e-4, atol=2e-4):
         _fail(f"flash_attention_gqa differs from the model's _attend on gemma-2b "
@@ -918,8 +1055,9 @@ def lm_serving_phase(torch, np, dev, passes=5):
     print(f"[lm] (b) layer 0, B=2 S=2048: flash_attention_gqa vs _attend max abs err "
           f"{att_err:.3e}; int8 MLP vs f32 MLP relative L2 {mlp_rel:.3e} "
           f"(truncating per-channel int8); path launches {path_counts}")
-    out.update(attend_max_abs_err=att_err, int8_mlp_rel_l2=mlp_rel, launches=path_counts)
-    del x, q, k, v, ref, att, m, m_ref, qw, x2
+    out.update(attend_max_abs_err=att_err, int8_mlp_rel_l2=mlp_rel, launches=path_counts,
+               launches_f32=f32_counts, launches_bf16=bf16_counts, bf16_max_abs_err=errs16)
+    del x, q, k, v, ref, att, m, m_ref, qw, x2, q16, k16, v16, x16, h16
     torch.cuda.empty_cache()
 
     # (c) bfloat16: launch/serve.py's defaults, timed (a smoke reading: at 96
@@ -1058,7 +1196,7 @@ def main() -> int:
     service = service_phase(torch, np, graphs["gnp_2e5"], dev)
     early = early_exit_phase(torch, np, graphs["pl_2e5"], dev)
     spmv_counts = spmv_path_phase(torch, np, graphs["gnp_2e5"], dev)
-    lm_rows = lm_kernel_phase(torch, dev)
+    lm_rows, tensor_cores = lm_kernel_phase(torch, dev)
     lm = lm_serving_phase(torch, np, dev)
 
     print("[times] kernel graph domain: ms plain_ms bound_ms library_ms "
@@ -1125,12 +1263,14 @@ def main() -> int:
         src, repl = lm_sources[r["kernel"]]
         kernels.append(dict(
             name=f"{r['kernel']}[{r['domain']},{r['case']}]", route="cuda", source=src,
-            replaces=repl, launches=lm["launches"][r["kernel"]],
+            replaces=repl, launches=lm[f"launches_{r['domain']}"][r["kernel"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            device_ms=r["device_ms"], library_device_ms=r["library_device_ms"],
             device_ops_per_call=lm_ops[r["kernel"]],
-            launches_source="phase 7(b): gemma-2b layer-0 attention and int8 MLP "
-                            "through the kernels' entry points, composed by this script",
+            launches_source=f"phase 7(b): gemma-2b layer-0 attention and int8 MLP "
+                            f"through the kernels' entry points, composed by this "
+                            f"script: its {r['domain']} pass",
             parity="pass"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1138,7 +1278,8 @@ def main() -> int:
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, streams=streams, kernel_rows=rows, service=service,
         early_exit=early,
-        lm_kernel_rows=lm_rows, lm_serving=lm, kernels=kernels), indent=1))
+        lm_kernel_rows=lm_rows, tensor_cores=tensor_cores, lm_serving=lm,
+        kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

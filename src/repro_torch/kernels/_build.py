@@ -13,9 +13,10 @@ Nothing is built when a module is imported: the first CUDA launch of a kernel
 builds it, and ``build_all`` builds every source at once, one ``nvcc`` per
 source, all started together.  ptxas' register and shared-memory report lands
 next to each library as ``<name>-<hash>.log``.  ``check_operand`` is the one
-operand check every kernel wrapper makes before a launch.  ``csrc_constants``
-reads a source's ``constexpr int`` literals, so that a wrapper sizes its
-launches from the constants the kernel is compiled with.
+operand check every kernel wrapper makes before a launch; ``tickets`` hands
+out the zeroed words the kernels' last-CTA folds count arrivals on.
+``csrc_constants`` reads a source's ``constexpr int`` literals, so that a
+wrapper sizes its launches from the constants the kernel is compiled with.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "build_log", "check_operand",
-           "csrc_constants", "load"]
+           "csrc_constants", "load", "tickets"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <repo>/build/repro_torch (this file is <repo>/src/repro_torch/kernels/_build.py)
@@ -41,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_tickets: Dict[Tuple[str, str, int], object] = {}
 
 
 def _nvcc() -> str:
@@ -156,3 +158,16 @@ def check_operand(t, name: str, dtype, shape=None, *, dims: Optional[int] = None
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def tickets(kernel: str, device, stream, n: int):
+    """At least ``n`` zeroed int32 words on ``device`` for ``kernel``'s
+    last-CTA folds on ``stream``.  Every launch leaves its words at 0 again,
+    so a set is zeroed once, when made (or grown), and never per call."""
+    import torch
+
+    key = (kernel, str(device), stream.cuda_stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t

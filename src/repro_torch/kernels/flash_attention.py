@@ -3,16 +3,22 @@
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_pallas``
 (body ``_fa_kernel``) and its GQA wrapper ``flash_attention_gqa``:
 softmax(QKᵀ/√d + causal/window mask)·V with float32 statistics and
-accumulator, output in q's dtype.  The kernel is ``csrc/flash_attention.cu``;
-its header says how it maps the TPU design.
+accumulator, output in q's dtype.  The kernels are in
+``csrc/flash_attention.cu``; its header says how they map the TPU design.
+Each input type has one kernel: bfloat16 runs on the tensor cores (wgmma on
+operands that TMA brings into shared memory; P enters P·V as two bf16 terms,
+since P rounded once to bf16 misses the bf16 tolerance), float32 on the CUDA
+cores (the tensor cores would take float32 only as TF32, which misses the
+float32 tolerance).
 
 Fully masked rows output exactly 0, as the contract
 (``kernels/ref.py::flash_attention_ref``) says.  The Pallas kernel's finite
 ``NEG_INF`` makes such rows output the mean of V instead; the port follows the
 contract.
 
-Bound on the H100: operations — 4·d FLOPs per unmasked (query, key) pair —
-at the model's sequence lengths; Q, K, V and O cross device memory once.
+Bound on the H100: operations — 4·d FLOPs per unmasked (query, key) pair,
+over 989 TFLOP/s in bf16 or 67 TFLOP/s in float32 — at the model's sequence
+lengths; Q, K, V and O cross device memory once.
 
 ``flash_attention_gqa`` launches the kernel for CUDA tensors (reading kv
 head ``h // (H/KV)`` in place) and raises on any operand it does not take;
@@ -84,9 +90,16 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
                          f"q {tuple(q.shape)}")
     if hd % 32 or hd > 256:
         raise ValueError(f"the kernel takes head_dim a multiple of 32 up to 256, got {hd}")
+    if q.dtype == torch.bfloat16:
+        for t, name in ((q, "q"), (k, "k")):
+            if any(st * t.element_size() % 16 for st in t.stride()[:3]):
+                raise ValueError(f"the bf16 kernel's TMA maps need {name}'s strides to "
+                                 f"be multiples of 16 bytes, got {t.stride()}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if skv == 0:                    # no key at all: every row is fully masked
+        return out.zero_()
     strides = (ctypes.c_int64 * 6)(q.stride(0), q.stride(1), q.stride(2),
                                    k.stride(0), k.stride(1), k.stride(2))
     lib = _build.load("flash_attention", _declare)

@@ -263,20 +263,15 @@ def fused_schedule(layout: FusedLayout):
 # ---------------------------------------------------------------------------
 # device scratch shared by the launches
 # ---------------------------------------------------------------------------
-_TICKETS = {}        # (device, stream) → int32 [3], zero between launches
 # kernel B's CTA, as csrc/fused_ppr.cu is compiled with
 COMBINE_THREADS = _build.csrc_constants("fused_ppr.cu")["kCombineThreads"]
 
 
 def _tickets(device: torch.device, stream) -> torch.Tensor:
-    """Zeroed words the kernels' last-CTA folds count arrivals on, one set a
-    stream: [0] kernel A's dangling mass, [1] kernel B's residual, [2] the
-    standalone dangling mass.  Each launch leaves its word at 0 again."""
-    key = (str(device), stream.cuda_stream)
-    t = _TICKETS.get(key)
-    if t is None:
-        t = _TICKETS[key] = torch.zeros(3, dtype=torch.int32, device=device)
-    return t
+    """The words the kernels' last-CTA folds count arrivals on: [0] kernel
+    A's dangling mass, [1] kernel B's residual, [2] the standalone dangling
+    mass (``_build.tickets``: zero between launches)."""
+    return _build.tickets("fused_ppr", device, stream, 3)
 
 
 @functools.lru_cache(maxsize=None)

@@ -20,7 +20,12 @@ from repro_torch.kernels import fused_ppr as tfused  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.coo_spmv import coo_spmv_kernel, coo_spmv_plain  # noqa: E402
 from repro_torch.kernels.dst_stream import build_dst_stream  # noqa: E402
-from repro_torch.kernels.fixed_matmul import quantized_matmul_plain  # noqa: E402
+from repro_torch.kernels.fixed_matmul import (  # noqa: E402
+    K_STEP,
+    cta_slots,
+    plan_splits,
+    quantized_matmul_plain,
+)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_gqa,
     flash_attention_gqa_plain,
@@ -218,5 +223,61 @@ def test_cuda_quantized_matmul_matches_plain(cuda, dtype, m, k, n):
     got = tops.quantized_matmul(a.to(cuda), qt.q.to(cuda), qt.scale.to(cuda), **tiles)
     torch.cuda.synchronize()
     assert tops.quantized_matmul_kernel.launches == before + 1
+    torch.testing.assert_close(got.cpu(), quantized_matmul_plain(a, qt.q, qt.scale),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 160, 192, 224, 256])
+def test_cuda_flash_bf16_every_head_dim(cuda, d):
+    """The tensor-core kernel at every head_dim it takes (one instantiation
+    each): causal GQA over ragged lengths (no tile divides 200 or 136)."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(torch.bfloat16) for shape in ((2, 200, 4, d), (2, 136, 2, d),
+                                                  (2, 136, 2, d)))
+    before = flash_attention_gqa.launches
+    got = flash_attention_gqa(q.to(cuda), k.to(cuda), v.to(cuda), causal=True, bq=1, bk=1)
+    torch.cuda.synchronize()
+    assert flash_attention_gqa.launches == before + 1
+    want = flash_attention_gqa_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.cpu().float(), want.float(), **ATTN_TOL["bf16"])
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_cuda_flash_bf16_d256_causal_gqa_long(cuda, window):
+    """gemma's head_dim 256, causal GQA (8 heads over 2) at S = 1024: many kv
+    tiles through the ring, diagonal and window tiles skipped per
+    warpgroup."""
+    rng = np.random.default_rng(1024 + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(torch.bfloat16) for shape in ((1, 1024, 8, 256), (1, 1024, 2, 256),
+                                                  (1, 1024, 2, 256)))
+    before = flash_attention_gqa.launches
+    got = flash_attention_gqa(q.to(cuda), k.to(cuda), v.to(cuda), causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_gqa.launches == before + 1
+    want = flash_attention_gqa_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.cpu().float(), want.float(), **ATTN_TOL["bf16"])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(128, 4096, 256), (72, 2048, 200)])
+def test_cuda_quantized_matmul_split_k(cuda, dtype, m, k, n):
+    """Shapes whose few output tiles engage the K split: within rtol = atol
+    = 1e-4 of the plain version, one launch a call, and the same bits on a
+    second call (the fold runs in split order; its tickets return to 0)."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dt)
+    qt = quantize_weights(torch.from_numpy((rng.standard_normal((k, n)) * 0.05)
+                                           .astype(np.float32)))
+    args = (a.to(cuda), qt.q.to(cuda), qt.scale.to(cuda))
+    assert plan_splits(m, n, k, K_STEP[dt], cta_slots(args[0].device, dtype == "bf16")) > 1
+    before = tops.quantized_matmul_kernel.launches
+    got = tops.quantized_matmul(*args, bm=8, bn=8, bk=8)
+    again = tops.quantized_matmul(*args, bm=8, bn=8, bk=8)
+    torch.cuda.synchronize()
+    assert tops.quantized_matmul_kernel.launches == before + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got.cpu(), quantized_matmul_plain(a, qt.q, qt.scale),
                                rtol=1e-4, atol=1e-4)
