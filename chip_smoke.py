@@ -24,6 +24,14 @@ exits non-zero.  It prints, in order:
    busy share of three fused passes under ``torch.profiler``;
 4. early exit on ``pl_2e5`` (``early_exit``, Q1.19, budgets 40 and 120):
    fused and single return identical states after identical iteration counts;
+   4b. live edge deltas on ``gnp_2e5`` (a fused and a single service, ten
+   ``random_delta(n_add=1024, n_remove=512)``, one ``localized_delta`` and
+   one growth of 256 vertices): after each, the refreshed dst stream equals
+   a fresh build, kernel 2 on it equals its plain version, and 32 served
+   queries equal a fresh registration's and the single family's; the
+   ``apply_delta`` ms and its stages, the reports, and device memory across
+   the deltas; then warm start on ``pl_2e5`` (Q1.19, budget 120) after a
+   delta that removes a hub edge: cold and warm iteration counts;
 5. the SpMV path (``core.spmv.spmv_kernel``) with its launch count, and the
    times: CUDA-event medians of one call of each kernel as a caller that
    waits sees it (``ms``, the host's enqueue included, as every earlier
@@ -249,6 +257,37 @@ def _library_timings(torch, row, library):
     row["library_device_ms"] = _time_ms(torch, library, hide_host=True)
 
 
+def _check_fused_iteration(torch, what, fargs, fmt) -> float:
+    """One ``fused_ppr_iteration`` on the card against its plain version on
+    the same operands; returns P_next's max abs error.  Limits: float32
+    P_next rtol 1e-5 + atol 1e-9 and 1e-6 absolutely, L1/Σd² residuals rtol
+    1e-4, ∞ residual 1e-6; fixed point raw bits equal, ∞ residual equal."""
+    from repro_torch.kernels.fused_ppr import fused_ppr_iteration, fused_ppr_plain
+
+    fkw = dict(alpha=ALPHA, fmt=fmt)
+    pn_k, res_k = fused_ppr_iteration(*fargs, **fkw)
+    pn_p, res_p = fused_ppr_plain(*fargs, **fkw)
+    if fmt is None:
+        err = float((pn_k - pn_p).abs().max()) if pn_k.numel() else 0.0
+        if err > 1e-6 or not torch.allclose(pn_k, pn_p, rtol=1e-5, atol=1e-9):
+            _fail(f"{what}: P_next max abs err {err} "
+                  f"(limits: rtol 1e-5 + atol 1e-9, and 1e-6)")
+        for r in (0, 2):
+            if not torch.allclose(res_k[r], res_p[r], rtol=1e-4, atol=0.0):
+                _fail(f"{what}: residual row {r} {res_k[r]} vs {res_p[r]}")
+        if float((res_k[1] - res_p[1]).abs().max()) > 1e-6:
+            _fail(f"{what}: inf residual {res_k[1]} vs {res_p[1]}")
+        return err
+    if not torch.equal(pn_k, pn_p):
+        _fail(f"{what}: P_next raw bits differ")
+    if not torch.equal(res_k[1], res_p[1]):
+        _fail(f"{what}: inf residual differs")
+    for r in (0, 2):
+        if not torch.allclose(res_k[r], res_p[r], rtol=1e-4, atol=0.0):
+            _fail(f"{what}: residual row {r}")
+    return 0.0
+
+
 def kernel_phase(torch, np, graphs, dev, timing: bool):
     from repro_torch.core.coo import BlockedCOO
     from repro_torch.core.fixed_point import Q1_25
@@ -341,27 +380,7 @@ def kernel_phase(torch, np, graphs, dev, timing: bool):
             # -- kernel 2: the fused iteration (A + B) ----------------------
             fargs = (topo, frg.fused_values(fmt), dang_idx, vm, p)
             fkw = dict(alpha=ALPHA, fmt=fmt)
-            pn_k, res_k = fused_ppr_iteration(*fargs, **fkw)
-            pn_p, res_p = fused_ppr_plain(*fargs, **fkw)
-            if fmt is None:
-                err = float((pn_k - pn_p).abs().max())
-                if err > 1e-6 or not torch.allclose(pn_k, pn_p, rtol=1e-5, atol=1e-9):
-                    _fail(f"fused {gname} f32: P_next max abs err {err} "
-                          f"(limits: rtol 1e-5 + atol 1e-9, and 1e-6)")
-                for r in (0, 2):
-                    if not torch.allclose(res_k[r], res_p[r], rtol=1e-4, atol=0.0):
-                        _fail(f"fused {gname} f32: residual row {r} {res_k[r]} vs {res_p[r]}")
-                if float((res_k[1] - res_p[1]).abs().max()) > 1e-6:
-                    _fail(f"fused {gname} f32: inf residual {res_k[1]} vs {res_p[1]}")
-            else:
-                err = 0.0
-                if not torch.equal(pn_k, pn_p):
-                    _fail(f"fused {gname} {dom}: P_next raw bits differ")
-                if not torch.equal(res_k[1], res_p[1]):
-                    _fail(f"fused {gname} {dom}: inf residual differs")
-                for r in (0, 2):
-                    if not torch.allclose(res_k[r], res_p[r], rtol=1e-4, atol=0.0):
-                        _fail(f"fused {gname} {dom}: residual row {r}")
+            err = _check_fused_iteration(torch, f"fused {gname} {dom}", fargs, fmt)
             row = dict(kernel="fused_ppr_iteration", graph=gname, domain=dom,
                        max_abs_err=err)
             # stream bytes as above; P and V̄ read once, P_next written once
@@ -642,6 +661,289 @@ def early_exit_phase(torch, np, g, dev, budgets=(40, 120), bits=20):
             _fail("early-exit recommendations differ between fused and single")
     print(f"[early-exit] service budget {budgets[0]}: identical recommendations")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: live edge deltas and warm start
+# ---------------------------------------------------------------------------
+DELTA_FIELDS = ("row_ptr", "col", "nz_rows", "slice_row")
+
+
+def _serve_batch(svc, query_cls, queries):
+    """Submit every (vertex, precision) query, flush, and return the
+    recommendations in order (pending futures of the service resolve too)."""
+    futs = [svc.submit(query_cls("g", v, k=10, precision=prec)) for v, prec in queries]
+    svc.flush()
+    return [f.result() for f in futs]
+
+
+def _same_answers(np, what, got, want, float_tol=1e-6):
+    """Q1.25 answers raw-bit equal (vertices and scores); float32 scores
+    within ``float_tol``.  Returns the float lists whose vertices agree."""
+    agree = 0
+    for a, b in zip(got, want):
+        if a.precision != b.precision or a.query.vertex != b.query.vertex:
+            _fail(f"{what}: answers out of step")
+        if not (np.all(np.isfinite(a.scores)) and a.vertices.shape == (10,)):
+            _fail(f"{what}: a recommendation is not 10 finite scores")
+        if a.query.vertex in set(a.vertices.tolist()):
+            _fail(f"{what}: a query vertex recommended itself")
+        if a.precision != "f32":
+            if not (np.array_equal(a.vertices, b.vertices)
+                    and np.array_equal(a.scores, b.scores)):
+                _fail(f"{what}: {a.precision} answer for vertex {a.query.vertex} differs")
+        else:
+            err = float(np.abs(a.scores - b.scores).max())
+            if err > float_tol:
+                _fail(f"{what}: float scores for vertex {a.query.vertex} differ by {err}")
+            agree += int(np.array_equal(a.vertices, b.vertices))
+    return agree
+
+
+def delta_phase(torch, np, graphs, dev):
+    """gnp_2e5: twelve deltas on a fused and a single service, each followed
+    by the refreshed stream against a fresh build, kernel 2 on it against its
+    plain version, and 32 served queries against a fresh registration and
+    the single family.  pl_2e5: warm start after a delta that removes a hub
+    edge.  The launches of kernel 2 counted are those of the delta'd fused
+    services' served waves (counts zeroed just before each serve and read
+    just after), not the comparisons."""
+    import gc
+
+    from repro_torch.core.fixed_point import Q1_25, format_for_bits
+    from repro_torch.graph_updates import localized_delta, random_delta
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+
+    launches = 0
+
+    def served(svc, queries):
+        nonlocal launches
+        reset_launch_counts()
+        recs = _serve_batch(svc, PPRQuery, queries)
+        torch.cuda.synchronize()
+        launches += launch_counts()["fused_ppr_iteration"]
+        return recs
+
+    # ---- gnp_2e5: twelve deltas --------------------------------------------
+    g = graphs["gnp_2e5"]
+    svcs = {}
+    for engine in ("fused", "single"):
+        svcs[engine] = PPRService(kappa=K, iterations=10, device=dev)
+        svcs[engine].register_graph("g", g, formats=[26], engine=engine)
+    rg = svcs["fused"].registered_graph("g")
+    rng = np.random.default_rng(2021)
+    warm = [(int(v), prec) for v in rng.choice(g.num_vertices, 16, replace=False)
+            for prec in (26, None)]
+    served(svcs["fused"], warm)                   # fills the caches
+    _serve_batch(svcs["single"], PPRQuery, warm)
+    seen = {v for v, _ in warm}
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    rows = []
+    # (a) ten random_delta(n_add=1024, n_remove=512), seeds 0-9; (b) one
+    # localized_delta(n_add=4, n_remove=1); (c) 256 new vertices, each wired
+    # to one old vertex (391 → 392 blocks of 512: a full rebuild); each drawn
+    # against the graph as it stands
+    for kind, seed in [("a", s) for s in range(10)] + [("b", 10), ("c", 11)]:
+        before = rg.source
+        rng = np.random.default_rng(seed)
+        delta = (localized_delta(before, rng, n_add=4, n_remove=1) if kind == "b" else
+                 random_delta(before, rng, n_add=0, n_remove=0, grow=256) if kind == "c"
+                 else random_delta(before, rng, n_add=1024, n_remove=512))
+        frontier = delta.affected_frontier(before)
+        fr = set(frontier.tolist())
+        outside = np.setdiff1d(np.arange(before.num_vertices), frontier)
+        pick = np.random.default_rng(100 + seed)
+        inside_new = [int(v) for v in pick.permutation(frontier) if int(v) not in seen][:8]
+        outside_new = [int(v) for v in pick.permutation(outside) if int(v) not in seen][:8]
+        # four pending queries a service: two in the frontier, two outside
+        pend = [(inside_new.pop(), 26), (outside_new.pop(), 26),
+                (inside_new.pop(), None), (outside_new.pop(), None)]
+        pending = {e: [svc.submit(PPRQuery("g", v, k=10, precision=p)) for v, p in pend]
+                   for e, svc in svcs.items()}
+        reports = {}
+        for engine, svc in svcs.items():
+            reports[engine] = svc.apply_delta("g", delta)
+            if engine == "fused":
+                torch.cuda.synchronize()
+                stages = dict(rg.delta_timings)
+                dirty = rg.last_refresh_blocks
+        apply_s = reports["fused"].pop("apply_s")
+        reports["single"].pop("apply_s")
+        if reports["fused"] != reports["single"]:
+            _fail(f"delta {kind}{seed}: reports differ: {reports}")
+        for engine, futs in pending.items():
+            for f in futs:
+                if (f.query.vertex in fr) != f.done():
+                    _fail(f"delta {kind}{seed}: pending vertex {f.query.vertex} "
+                          f"rejected {f.done()}, in the frontier {f.query.vertex in fr}")
+                if f.done() and getattr(f.exception(), "code", None) != "delta-invalidated":
+                    _fail(f"delta {kind}{seed}: rejection code {f.exception()!r}")
+        # the refreshed stream against a fresh build of the merged graph
+        fresh = PPRService(kappa=K, iterations=10, device=dev)
+        frg = fresh.register_graph("g", rg.source, formats=[26], engine="fused")
+        st, fst = rg.fused_stream(), frg.fused_stream()  # build_dst_stream(build_fused_layout(merged, 512, 256))
+        if st.slice_edges != fst.slice_edges or st.num_rows != fst.num_rows or not all(
+                np.array_equal(getattr(st, f), getattr(fst, f)) for f in DELTA_FIELDS) \
+                or not np.array_equal(st.val.view(np.uint32), fst.val.view(np.uint32)):
+            _fail(f"delta {kind}{seed}: the refreshed dst stream differs from a fresh build")
+        topo, ftopo = rg.fused_topology(), frg.fused_topology()
+        if not all(torch.equal(getattr(topo, f), getattr(ftopo, f)) for f in DELTA_FIELDS):
+            _fail(f"delta {kind}{seed}: the refreshed device stream differs")
+        if not torch.equal(rg.fused_dangling(), frg.fused_dangling()):
+            _fail(f"delta {kind}{seed}: the refreshed dangling list differs")
+        # kernel 2 on the refreshed device stream against its plain version
+        errs = {}
+        for fmt in (None, Q1_25):
+            if not torch.equal(rg.fused_values(fmt), frg.fused_values(fmt)):
+                _fail(f"delta {kind}{seed}: refreshed values differ ({fmt})")
+            p_np, vm_np = _inputs(np, rg.source, fmt, seed=seed)
+            fargs = (topo, rg.fused_values(fmt), rg.fused_dangling(),
+                     torch.as_tensor(vm_np, device=dev), torch.as_tensor(p_np, device=dev))
+            errs["f32" if fmt is None else fmt.name] = _check_fused_iteration(
+                torch, f"delta {kind}{seed} fused_ppr_iteration", fargs, fmt)
+        del fargs
+        # 16 Q1.25 + 16 f32 queries: the pending ones again, six more inside
+        # the frontier and six outside (after (c), five and a vertex it added)
+        outside_q = outside_new[:5] + [rg.num_vertices - 1] if kind == "c" \
+            else outside_new[:6]
+        verts = inside_new[:6] + outside_q + [v for v, _ in pend]
+        if len(verts) != 16:
+            _fail(f"delta {kind}{seed}: too few unseen vertices to query ({verts})")
+        queries = [(v, 26) for v in verts] + [(v, None) for v in verts]
+        seen.update(v for v, _ in queries)
+        got = {"fused": served(svcs["fused"], queries),
+               "single": _serve_batch(svcs["single"], PPRQuery, queries),
+               "fresh": _serve_batch(fresh, PPRQuery, queries)}
+        if any(r.source != "wave" for recs in got.values() for r in recs):
+            _fail(f"delta {kind}{seed}: a post-delta answer came from the cache")
+        agree = _same_answers(np, f"delta {kind}{seed} fused vs fresh", got["fused"], got["fresh"])
+        _same_answers(np, f"delta {kind}{seed} fused vs single", got["fused"], got["single"])
+        float_bits = all(np.array_equal(a.scores, b.scores)
+                         for a, b in zip(got["fused"], got["fresh"]) if a.precision == "f32")
+        del fresh, frg, fst, ftopo
+        row = dict(kind=kind, seed=seed, apply_ms=apply_s * 1e3,
+                   stages_ms={k: v * 1e3 for k, v in stages.items()},
+                   dirty_blocks=dirty, edges=st.num_edges, slice_edges=st.slice_edges,
+                   slices=st.num_slices, dangling=int(rg.fused_dangling().numel()),
+                   max_abs_err=errs, float_lists_equal_fresh=agree,
+                   float_bits_equal_fresh=float_bits, **reports["fused"])
+        rows.append(row)
+        print(f"[delta] gnp_2e5 {kind} seed {seed}: apply {row['apply_ms']:.1f} ms "
+              f"({', '.join(f'{k} {v:.1f}' for k, v in row['stages_ms'].items())}); "
+              f"dirty blocks {'all (full rebuild)' if dirty is None else dirty}; "
+              f"|V|={row['num_vertices']} |E|={st.num_edges}, slices of {st.slice_edges}, "
+              f"{int(row['dangling'])} dangling; frontier {row['frontier_size']}, "
+              f"cache_dropped {row['cache_dropped']}, cache_retained "
+              f"{row['cache_retained']}, pending_dropped {row['pending_dropped']}, "
+              f"pending_requeued {row['pending_requeued']}; stream = fresh build, kernel "
+              f"= plain, answers = fresh and single (float bit-equal {float_bits})")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated(dev)
+    topo = rg.fused_topology()
+    one_stream = sum(t.numel() * t.element_size() for t in (
+        topo.row_ptr, topo.col, topo.nz_rows, topo.slice_row, rg.fused_dangling(),
+        rg.fused_values(None), rg.fused_values(Q1_25)))
+    del topo
+    print(f"[delta] device memory allocated before (a) {mem_before} B, after (c) "
+          f"{mem_after} B: {mem_after - mem_before:+d} B against one stream with its "
+          f"two formats, {one_stream} B")
+    if mem_after - mem_before > one_stream:
+        _fail("device memory grew by more than one stream across the deltas")
+    a_ms = sorted(r["apply_ms"] for r in rows if r["kind"] == "a")
+    stage_p50 = {k: statistics.median(r["stages_ms"][k] for r in rows if r["kind"] == "a")
+                 for k in rows[0]["stages_ms"]}
+    print(f"[delta] apply_delta over (a): p50 {statistics.median(a_ms):.1f} ms, max "
+          f"{a_ms[-1]:.1f} ms; stage p50s {json.dumps({k: round(v, 2) for k, v in stage_p50.items()})}")
+    del svcs, rg
+    gc.collect()
+
+    # ---- pl_2e5: warm start after a delta that removes a hub edge ------------
+    g = graphs["pl_2e5"]
+    bits, budget = 20, 120
+    fmt = format_for_bits(bits)
+    hub = int(np.bincount(g.x, minlength=g.num_vertices).argmax())
+    seed = next(s for s in range(1000) if np.any(random_delta(
+        g, np.random.default_rng(s), n_add=64, n_remove=32).remove_dst == hub))
+    delta = random_delta(g, np.random.default_rng(seed), n_add=64, n_remove=32)
+    frontier = delta.affected_frontier(g)
+    pick = np.random.default_rng(7)
+    outside = np.setdiff1d(np.arange(g.num_vertices), frontier)
+    verts = [int(v) for v in pick.choice(frontier, 8, replace=False)] \
+        + [int(v) for v in pick.choice(outside, 8, replace=False)]
+    queries = [(v, bits) for v in verts]
+    svcs, out = {}, {}
+    for engine in ("fused", "single"):
+        svc = PPRService(kappa=K, iterations=budget, early_exit=True, warm_start=True,
+                         device=dev)
+        svc.register_graph("g", g, formats=[bits], engine=engine)
+        serve = served if engine == "fused" else (lambda s, q: _serve_batch(s, PPRQuery, q))
+        serve(svc, queries)
+        cold_iters = svc._cold_iters[("g", fmt.name)]
+        report = svc.apply_delta("g", delta)
+        saved0 = svc.telemetry_summary()["iterations_saved"]
+        recs = serve(svc, queries)
+        summ = svc.telemetry_summary()
+        warm_iters = budget - int(summ["iterations_saved"] - saved0)
+        svcs[engine] = svc
+        out[engine] = dict(cold_iterations=cold_iters, warm_iterations=warm_iters,
+                           warm_start_iterations_saved=summ["warm_start_iterations_saved"],
+                           warm_start_columns=summ["warm_start_columns"],
+                           frontier_size=report["frontier_size"],
+                           cache_dropped=report["cache_dropped"],
+                           waves=[r.source for r in recs].count("wave"), recs=recs)
+    f, s_ = out["fused"], out["single"]
+    for key in ("cold_iterations", "warm_iterations", "warm_start_iterations_saved"):
+        if f[key] != s_[key]:
+            _fail(f"warm start: {key} {f[key]} (fused) vs {s_[key]} (single)")
+    _same_answers(np, "warm start fused vs single", f["recs"], s_["recs"])
+    for v in verts:
+        a = svcs["fused"]._warm.get("g", v, fmt.name)
+        b = svcs["single"]._warm.get("g", v, fmt.name)
+        if not np.array_equal(a, b):
+            _fail(f"warm start: the fused and single states of vertex {v} differ")
+    if not f["warm_start_iterations_saved"] > 0 or f["waves"] != 8:
+        _fail(f"warm start saved no iteration or served {f['waves']} waves, not 8: {f}")
+    # the warm waves (the frontier's 8) against a cold service on the merged
+    # graph: rankings equal, scores within 4 resolution (a warm seed may
+    # absorb into a state some LSBs away, tests/test_graph_updates.py:291-316);
+    # a swap of two vertices whose cold scores lie within that tolerance is a
+    # tie, not a ranking change.  The other 8 are served from the retagged
+    # cache, as computed before the delta.
+    merged = svcs["fused"].registered_graph("g").source
+    cold = PPRService(kappa=K, iterations=budget, early_exit=True, warm_start=True,
+                      device=dev)
+    cold.register_graph("g", merged, formats=[bits], engine="fused")
+    cold_recs = _serve_batch(cold, PPRQuery, queries[:8])
+    tol = 4 * fmt.resolution
+    exact, worst = 0, 0.0
+    if [r.source for r in f["recs"][:8]] != ["wave"] * 8:
+        _fail("warm start: a frontier vertex was not served by a wave")
+    for w, c in zip(f["recs"][:8], cold_recs):
+        worst = max(worst, float(np.abs(w.scores - c.scores).max()))
+        col = cold._warm.get("g", w.query.vertex, fmt.name).astype(np.float64) / fmt.scale
+        if np.abs(w.scores - c.scores).max() > tol or \
+                np.abs(col[w.vertices] - c.scores).max() > tol:
+            _fail(f"warm start: vertex {w.query.vertex} ranks {w.vertices} / {w.scores} "
+                  f"against cold {c.vertices} / {c.scores}")
+        exact += int(np.array_equal(w.vertices, c.vertices))
+    print(f"[warm-start] pl_2e5 Q1.19 budget {budget}: delta seed {seed} removes an edge "
+          f"into the hub {hub}; frontier {f['frontier_size']}, cache_dropped "
+          f"{f['cache_dropped']}; cold wave {f['cold_iterations']} iterations, warm wave "
+          f"{f['warm_iterations']} ({f['warm_start_columns']:.0f} seeded columns), "
+          f"warm_start_iterations_saved {f['warm_start_iterations_saved']:.0f}; fused and "
+          f"single identical; against a cold service: {exact}/8 lists equal, max score "
+          f"diff {worst:.3e} (limit {tol:.3e})")
+    for o in out.values():
+        o.pop("recs")
+    return dict(gnp_2e5=rows, apply_ms_p50=statistics.median(a_ms), apply_ms_max=a_ms[-1],
+                stage_ms_p50=stage_p50, memory_before=mem_before, memory_after=mem_after,
+                one_stream_bytes=one_stream, warm_start=dict(
+                    out, hub=hub, delta_seed=seed, cold_lists_equal=exact,
+                    cold_max_score_diff=worst), launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1195,6 +1497,11 @@ def main() -> int:
     rows, streams = kernel_phase(torch, np, graphs, dev, timing=True)
     service = service_phase(torch, np, graphs["gnp_2e5"], dev)
     early = early_exit_phase(torch, np, graphs["pl_2e5"], dev)
+    t0 = time.perf_counter()
+    deltas = delta_phase(torch, np, graphs, dev)
+    if deltas["launches"] == 0:
+        _fail("the delta phase's served waves launched fused_ppr_iteration no time")
+    print(f"[delta] phase took {time.perf_counter() - t0:.1f} s")
     spmv_counts = spmv_path_phase(torch, np, graphs["gnp_2e5"], dev)
     lm_rows, tensor_cores = lm_kernel_phase(torch, dev)
     lm = lm_serving_phase(torch, np, dev)
@@ -1230,6 +1537,10 @@ def main() -> int:
           f"{sv['single_wave_latency_p95_s'] * 1e3:.2f} ms")
 
     launches = dict(service["launches"], coo_spmv=spmv_counts["coo_spmv"])
+    launches_by_path = {"fused_ppr_iteration": {
+        "phase 3": service["launches"]["fused_ppr_iteration"],
+        "phase 4b": deltas["launches"]}}
+    launches["fused_ppr_iteration"] += deltas["launches"]
     sources = {"coo_spmv": ("src/repro_torch/csrc/coo_spmv.cu",
                             "src/repro/kernels/coo_spmv.py:125"),
                "fused_ppr_iteration": ("src/repro_torch/csrc/fused_ppr.cu",
@@ -1238,7 +1549,9 @@ def main() -> int:
                                            "src/repro/kernels/fused_ppr.py:365")}
     launches_source = {
         "coo_spmv": "phase 5: core.spmv.spmv_kernel",
-        "fused_ppr_iteration": "phase 3: PPRService served path",
+        "fused_ppr_iteration": "phase 3: PPRService served path, and phase 4b: "
+                               "the waves served after each delta on the refreshed "
+                               "streams (gnp_2e5) and warm start (pl_2e5)",
         "fused_ppr_dangling_mass": "phase 3: PPRService served path, where the "
                                    "dangling fold runs inside fused_ppr_iteration's "
                                    "kernel A and this standalone launch is not made"}
@@ -1254,7 +1567,8 @@ def main() -> int:
             function_bound_ms=r["unpadded_bound_ms"],
             device_ops_per_call=r["device_ops_per_call"], device_ms=r["device_ms"],
             library_device_ms=r["library_device_ms"],
-            launches_source=launches_source[r["kernel"]], parity="pass"))
+            launches_source=launches_source[r["kernel"]],
+            launches_by_path=launches_by_path.get(r["kernel"]), parity="pass"))
     lm_sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                       "src/repro/kernels/flash_attention.py:86"),
                   "quantized_matmul": ("src/repro_torch/csrc/fixed_matmul.cu",
@@ -1277,7 +1591,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, streams=streams, kernel_rows=rows, service=service,
-        early_exit=early,
+        early_exit=early, deltas=deltas,
         lm_kernel_rows=lm_rows, tensor_cores=tensor_cores, lm_serving=lm,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

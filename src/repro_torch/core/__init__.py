@@ -1,5 +1,11 @@
 # The paper's primary contribution: reduced-precision streaming COO SpMV + PPR.
-from repro_torch.core.coo import BlockedCOO, COOGraph, quantize_values
+from repro_torch.core.coo import (
+    BlockedCOO,
+    COOGraph,
+    EdgeMergeInfo,
+    merge_edge_delta,
+    quantize_values,
+)
 from repro_torch.core.fixed_point import (
     BITWIDTH_TO_FORMAT,
     PAPER_FORMATS,
@@ -26,7 +32,8 @@ from repro_torch.core.ppr import (
 from repro_torch.core.spmv import spmv_fixed, spmv_float, spmv_kernel
 
 __all__ = [
-    "COOGraph", "BlockedCOO", "quantize_values", "QFormat", "format_for_bits",
+    "COOGraph", "BlockedCOO", "EdgeMergeInfo", "merge_edge_delta",
+    "quantize_values", "QFormat", "format_for_bits",
     "Q1_19", "Q1_21", "Q1_23", "Q1_25", "PAPER_FORMATS", "BITWIDTH_TO_FORMAT",
     "wrap_u32", "widen_u32",
     "PPRConfig", "run_ppr", "batched_ppr", "ppr_float", "make_ppr_fixed",

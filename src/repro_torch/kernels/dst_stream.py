@@ -31,7 +31,7 @@ schedule was cut at, the one operand through which the kernels take a stream.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -124,6 +124,14 @@ class DstStream:
         if key not in self._device:
             self._device[key] = torch.as_tensor(self.raw_values(fmt), device=device)
         return self._device[key]
+
+    def release(self) -> List[Tuple]:
+        """Drop every device upload of this stream (the tensors go once no
+        caller holds them) and return what was uploaded, as keys
+        ``("topology", device)`` and ``("values", device, fmt)``."""
+        keys = list(self._device)
+        self._device.clear()
+        return keys
 
 
 def _blocked_edges(b: BlockedCOO):

@@ -157,7 +157,11 @@ def build_fused_layout(g: COOGraph, v_tile: int, packet: int,
     ``reuse``/``dirty``: incremental re-packetization — per-block rows of
     clean dst blocks are taken from ``reuse`` (same arrays, not copies), only
     blocks in ``dirty`` are rebuilt.  Requires an unchanged block count;
-    callers fall back to a full rebuild when ``n_blk`` moves.
+    callers fall back to a full rebuild when ``n_blk`` moves.  A clean
+    block's rows keep their src blocks (read from ``reuse``'s schedule), so
+    the result is array-equal to a fresh build of the merged graph; the
+    reference gives them the dst block instead
+    (``src/repro/kernels/fused_ppr.py:190``, ``ROADMAP.md`` §3).
     """
     v = g.num_vertices
     n_blk = max(1, -(-v // v_tile))
@@ -168,11 +172,13 @@ def build_fused_layout(g: COOGraph, v_tile: int, packet: int,
                  else {int(d) for d in dirty})
     # dst-major lexsorted stream ⇒ each dst block is one contiguous slice
     bounds = np.searchsorted(np.asarray(g.x), np.arange(n_blk + 1) * v_tile)
+    if reuse is not None:
+        reuse_off, reuse_src = fused_schedule(reuse)
     rows_x, rows_y, rows_v, rows_s = [], [], [], []
     for d in range(n_blk):
         if reuse is not None and d not in dirty_set:
             rx, ry, rv = reuse.row_x[d], reuse.row_y[d], reuse.row_val[d]
-            rs = np.full(rx.shape[0], d, np.int32)
+            rs = reuse_src[reuse_off[d]:reuse_off[d + 1]]
         else:
             a, b = int(bounds[d]), int(bounds[d + 1])
             rx, ry, rv, rsrc = _build_dst_row(

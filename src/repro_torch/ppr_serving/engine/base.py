@@ -71,7 +71,8 @@ class WaveEngine(abc.ABC):
 
     Subclasses set ``key`` (registry name), ``family`` (engine pair a graph
     registers onto) and ``fixed`` (which precision domain the engine serves),
-    and implement ``prepare``/``plan``.
+    and implement ``prepare``/``plan`` (and ``on_delta`` where they hold
+    device state a delta invalidates).
     """
 
     key: ClassVar[str]
@@ -103,8 +104,9 @@ class WaveEngine(abc.ABC):
 
     def on_delta(self, rg, info) -> None:
         """Refresh the engine's device state after a host-side edge-delta
-        merge — with the delta slice (``incremental refresh_fused``)."""
-        raise NotImplementedError("edge deltas come with the delta slice")
+        merge (``rg.apply_delta``).  Must be idempotent — both members of a
+        family are armed on most graphs and each gets the callback.  A no-op
+        here, for engines that hold no device state of their own."""
 
     # ------------------------------------------------------------------
     # shared drivers

@@ -13,9 +13,13 @@ accumulation-order noise.
 State layout (on ``FusedRegisteredGraph``): the packetized ``FusedLayout``
 on the host, the dst stream built from it, and on the device only the
 stream: its topology (``row_ptr``, ``col``, slice schedule), the dangling
-list, the float values and one raw value array per prepared Q format.  The
-delta refresh (``refresh_fused``, which rebuilds the stream) comes with the
-delta slice.
+list, the float values and one raw value array per prepared Q format.
+``on_delta`` re-packetizes only the dst blocks an edge delta touched
+(``changed_dst // v_tile``) — per-block rebuilds are deterministic, so the
+incremental layout is array-equal to a fresh registration of the merged
+graph — behind a staleness latch (both family members are armed and each
+gets the callback), then builds a new dst stream from the refreshed layout
+and uploads it in place of the old one, whose device tensors it releases.
 
 The early-exit driver reuses the kernel's residual output instead of
 ``ConvergenceMonitor``'s separate device reductions, with identical exit
@@ -26,6 +30,7 @@ remaining budget picks the bit-identical return state.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -62,6 +67,11 @@ class FusedRegisteredGraph(RegisteredGraph):
         self._fused_layout = None
         self._fused_stream: Optional[DstStream] = None
         self._dang_idx = None
+        self._fused_stale = False
+        self._fused_full_rebuild = False
+        self._fused_dirty: set = set()
+        #: dst blocks the last refresh re-packetized; None for a full rebuild
+        self.last_refresh_blocks: Optional[int] = None
         super().__init__(name, g, packet=packet, device=device)
 
     # ---- fused caches ------------------------------------------------------
@@ -92,6 +102,60 @@ class FusedRegisteredGraph(RegisteredGraph):
     def fused_values(self, fmt: Optional[QFormat] = None):
         """[E] value operand — f32 (fmt=None) or raw int32 bits."""
         return self.fused_stream().values(self.device, fmt)
+
+    # ---- delta ingestion ---------------------------------------------------
+    def apply_delta(self, delta):
+        """Host merge plus dirty-dst-block tracking for the fused layout.
+
+        ``changed_dst`` covers every destination whose incident edge set or
+        edge values moved (including removed edges' old rows); vertex growth
+        that changes the block count forces a full re-packetization."""
+        info = super().apply_delta(delta)
+        if self._fused_layout is not None:
+            n_blk = max(1, -(-self.num_vertices // self.v_tile))
+            if n_blk != self._fused_layout.n_blk:
+                self._fused_full_rebuild = True
+            else:
+                self._fused_dirty.update(
+                    int(b) for b in np.unique(info.changed_dst // self.v_tile))
+            self._fused_stale = True
+        else:
+            self._dang_idx = None       # nothing built from the stream yet
+        return info
+
+    def refresh_fused(self) -> None:
+        """Re-packetize the dirty dst blocks, rebuild the dst stream from the
+        refreshed layout and upload what the old stream had uploaded (its
+        topology, the dangling list, the values of every format), releasing
+        the old uploads.  Idempotent across the family's two armed engines
+        (staleness latch)."""
+        if not self._fused_stale:
+            return
+        self._fused_stale = False
+        old, dirty = self._fused_layout, self._fused_dirty
+        self._fused_dirty = set()
+        full = self._fused_full_rebuild or old is None
+        self._fused_full_rebuild = False
+        uploaded = self._fused_stream.release() if self._fused_stream is not None else []
+        had_dangling = self._dang_idx is not None
+        self._fused_stream = self._dang_idx = None
+        t0 = time.perf_counter()
+        self._fused_layout = build_fused_layout(self.source, self.v_tile, self.packet,
+                                                reuse=None if full else old,
+                                                dirty=None if full else dirty)
+        t1 = time.perf_counter()
+        self.fused_stream()
+        t2 = time.perf_counter()
+        for key in uploaded:
+            if key[0] == "topology":
+                self.fused_topology()
+            else:
+                self.fused_values(key[2])
+        if had_dangling:
+            self.fused_dangling()
+        self.delta_timings.update(repacketize=t1 - t0, stream=t2 - t1,
+                                  upload=time.perf_counter() - t2)
+        self.last_refresh_blocks = None if full else len(dirty)
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +258,10 @@ class FusedFloatEngine(WaveEngine):
                                         None, cell),
             topk=self._make_topk(topk_tile))
 
+    def on_delta(self, rg, info) -> None:
+        rg.refresh_device_base()
+        rg.refresh_fused()
+
 
 @register_engine
 class FusedFixedEngine(WaveEngine):
@@ -229,3 +297,7 @@ class FusedFixedEngine(WaveEngine):
             iterate=_make_fused_iterate(self, iterations, convergence, True,
                                         fmt.scale, cell),
             topk=self._make_topk(topk_tile))
+
+    def on_delta(self, rg, info) -> None:
+        rg.refresh_device_base()
+        rg.refresh_fused()

@@ -51,6 +51,9 @@ class FloatEngine(WaveEngine):
             iterate=self._make_iterate(iterations, convergence, False, None),
             topk=self._make_topk(topk_tile))
 
+    def on_delta(self, rg, info) -> None:
+        rg.refresh_device_base()
+
 
 @register_engine
 class FixedEngine(WaveEngine):
@@ -86,3 +89,6 @@ class FixedEngine(WaveEngine):
             step=step,
             iterate=self._make_iterate(iterations, convergence, True, fmt.scale),
             topk=self._make_topk(topk_tile))
+
+    def on_delta(self, rg, info) -> None:
+        rg.refresh_device_base()

@@ -1,22 +1,27 @@
 """Registered-graph state holders — host topology + device upload caches.
 
 Counterpart of ``repro.ppr_serving.graphs`` (``RegisteredGraph`` only: the
-sharded graph comes with the multi-GPU slice, ``apply_delta`` with the delta
-slice).  Every upload goes to the graph's ``device`` — the service's.
+sharded graph comes with the multi-GPU slice).  Every upload goes to the
+graph's ``device`` — the service's.
 
-What lives here is what every engine shares: the unpadded host graph, packet
-padding, the host-side raw quantization cache and the full-layout device
-arrays.  ``epoch`` counts applied deltas; the service stamps it into cache
-keys and wave keys so results computed on different topologies never alias.
+What lives here is what every engine shares: the unpadded host graph (the
+delta base), packet padding, the out-degree vector, the host-side raw
+quantization cache, the full-layout device arrays, and the host-side
+incremental merge of edge deltas — surviving edges keep their raw bits, only
+entries whose source out-degree moved are requantized, bit-identical to
+quantizing the merged graph from scratch.  ``epoch`` counts applied deltas;
+the service stamps it into cache keys and wave keys so results computed on
+different topologies never alias.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.coo import COOGraph
+from repro_torch.core.coo import COOGraph, EdgeMergeInfo, quantize_values
 from repro_torch.core.fixed_point import QFormat
 from repro_torch.device import resolve_device
 from repro_torch.ppr_serving.telemetry import SINGLE_DEVICE_KEY
@@ -25,8 +30,8 @@ __all__ = ["RegisteredGraph"]
 
 
 class RegisteredGraph:
-    """Host-side graph state prepared once at registration, plus the
-    full-layout device upload cache.
+    """Host-side graph state prepared once at registration and patched in
+    place by edge deltas, plus the full-layout device upload cache.
 
     The full-layout edge stream (``x``/``y``/``val``) is uploaded eagerly —
     every single-device wave reads it — unless a subclass defers it because
@@ -46,11 +51,27 @@ class RegisteredGraph:
         self.graph = g.pad_to_packets(packet)
         self.num_vertices = g.num_vertices
         self.dangling = torch.as_tensor(self.graph.dangling, device=self.device)
+        self._outdeg = np.bincount(g.y, minlength=g.num_vertices).astype(np.int64)
         self._full_device: Optional[Tuple[torch.Tensor, ...]] = None
         self._quantized: Dict[QFormat, torch.Tensor] = {}
         self._quantized_host: Dict[QFormat, np.ndarray] = {}   # unpadded uint32
+        self._stale_device_formats: set = set()
+        self._full_was_materialized = False
+        self._armed: Dict[str, object] = {}    # engine key → engine instance
+        #: host seconds of the last delta's stages ("merge", "requantize",
+        #: then each refresh's own), for the operator and the chip script
+        self.delta_timings: Dict[str, float] = {}
         if not self._defer_full_upload:
             self.device_full()
+
+    # ---- engine bookkeeping -----------------------------------------------
+    def arm(self, engine) -> None:
+        """Record an engine as serving this graph — armed engines get the
+        ``on_delta`` device-refresh callback after each edge delta."""
+        self._armed[engine.key] = engine
+
+    def armed_engines(self):
+        return tuple(self._armed.values())
 
     # ---- device upload caches ---------------------------------------------
     def device_full(self) -> Tuple[torch.Tensor, ...]:
@@ -89,3 +110,56 @@ class RegisteredGraph:
             self._quantized[fmt] = torch.as_tensor(raw.view(np.int32),
                                                    device=self.device)
         return self._quantized[fmt]
+
+    # ---- delta ingestion --------------------------------------------------
+    def apply_delta(self, delta) -> EdgeMergeInfo:
+        """Merge an edge delta (``graph_updates.EdgeDelta``) into the host
+        state; bumps ``epoch``.
+
+        Pre-registered Q formats are requantized incrementally: surviving
+        edges keep their raw bits (copied through the merge's old→new index
+        map), only ``changed_mask`` entries — edges of sources whose
+        out-degree moved — go through the quantizer again.  The result is
+        bit-identical to quantizing the merged graph from scratch.
+
+        Device caches become stale here and are released; the graph's armed
+        engines refresh them through ``on_delta`` (the service drives that
+        loop), so device costs are paid at delta time, not smeared over the
+        next waves."""
+        t0 = time.perf_counter()
+        new_g, info = delta.apply(self.source, outdeg=self._outdeg)
+        self._outdeg = info.new_outdeg
+        self.source = new_g
+        self.graph = new_g.pad_to_packets(self.packet)
+        self.num_vertices = new_g.num_vertices
+        t1 = time.perf_counter()
+        for fmt, old_raw in list(self._quantized_host.items()):
+            new_raw = np.zeros(new_g.num_edges, np.uint32)
+            new_raw[info.new_pos_of_kept] = old_raw[info.kept_old_idx]
+            if info.changed_mask.any():
+                new_raw[info.changed_mask] = quantize_values(
+                    new_g.val[info.changed_mask], fmt)
+            self._quantized_host[fmt] = new_raw
+        t2 = time.perf_counter()
+        self._stale_device_formats |= set(self._quantized)
+        self._quantized.clear()
+        self._full_was_materialized = self._full_device is not None
+        self._full_device = None
+        self.dangling = torch.as_tensor(self.graph.dangling, device=self.device)
+        self.epoch += 1
+        self.delta_timings = {"merge": t1 - t0, "requantize": t2 - t1,
+                              "upload_dangling": time.perf_counter() - t2}
+        return info
+
+    def refresh_device_base(self) -> None:
+        """Re-upload the base device caches a delta invalidated — previously
+        uploaded quantized formats, and the full layout if it was materialized
+        (or this graph uploads eagerly).  Idempotent across armed engines."""
+        t0 = time.perf_counter()
+        for fmt in tuple(self._stale_device_formats):
+            self.quantized(fmt)
+        self._stale_device_formats.clear()
+        if self._full_was_materialized or not self._defer_full_upload:
+            self.device_full()
+        self.delta_timings["upload_base"] = (self.delta_timings.get("upload_base", 0.0)
+                                             + time.perf_counter() - t0)

@@ -14,11 +14,15 @@ A wave shares one edge stream over up to κ personalization columns (the
 paper's κ-batching).  Results are ranked ``Recommendation``s — the query
 vertex itself is always excluded from its own top-k.
 
+``apply_delta`` absorbs an edge delta into a live graph (epoch bump, scoped
+invalidation, the armed engines' device refresh), and ``warm_start`` seeds
+waves from each vertex's last converged column (``repro_torch.graph_updates``).
+
 Not in this slice, each raising ``NotImplementedError`` that names the slice
-that brings it: ``precision="auto"`` and its controller, ``warm_start`` and
-``prefetch`` (the autotune slice), ``tracing``, ``slo`` and ``otlp`` (the
-observability slice), ``mesh`` (the multi-GPU slice), ``apply_delta`` (the
-delta slice), and the deprecated ``serve``/``pump``/``drain``.
+that brings it: ``precision="auto"`` and its controller, and ``prefetch``
+(the autotune slice), ``tracing``, ``slo`` and ``otlp`` (the observability
+slice), ``mesh`` (the multi-GPU slice), and the deprecated
+``serve``/``pump``/``drain``.
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ import torch
 from repro_torch.autotune.convergence import ConvergencePolicy
 from repro_torch.core.fixed_point import PAPER_FORMATS, QFormat, format_for_bits
 from repro_torch.device import resolve_device
+from repro_torch.graph_updates.delta import EdgeDelta
+from repro_torch.graph_updates.warmstart import WarmStartStore
 from repro_torch.obs import FlightRecorder
 from repro_torch.ppr_serving.cache import LRUCache
 from repro_torch.ppr_serving.engine import engine_families, engine_for, family_members
@@ -46,10 +52,9 @@ Precision = Union[None, int, str, QFormat]
 FLOAT_KEY = "f32"
 AUTO_KEY = "auto"
 
-_AUTOTUNE_SLICE = "the autotune slice (precision='auto', warm start, prefetch)"
+_AUTOTUNE_SLICE = "the autotune slice (precision='auto', prefetch)"
 _OBS_SLICE = "the observability slice (tracing, SLO, OTLP)"
 _MESH_SLICE = "the multi-GPU slice"
-_DELTA_SLICE = "the delta slice (apply_delta with the fused refresh_fused)"
 
 
 def _later(what: str, slice_name: str) -> NotImplementedError:
@@ -115,8 +120,15 @@ class Recommendation:
 
 class PPRService:
     """Facade: named graphs on engine backends, κ-batched admission,
-    futures-based results, an LRU result cache and early-exit iterations,
-    on one device (``device="cuda"`` unless the caller asks for the CPU)."""
+    futures-based results, an LRU result cache, early-exit iterations, live
+    edge deltas and warm start, on one device (``device="cuda"`` unless the
+    caller asks for the CPU).
+
+    ``warm_start`` seeds wave iterations from each personalization vertex's
+    last converged column (True, or an int store capacity per graph) — pair
+    it with ``early_exit`` so the shorter convergence distance actually
+    saves iterations.  The columns live on the host: a warm wave copies its
+    final state to the host once."""
 
     def __init__(
         self,
@@ -139,7 +151,6 @@ class PPRService:
     ):
         for name, value, slice_name in (
                 ("autotune", autotune, _AUTOTUNE_SLICE),
-                ("warm_start", warm_start, _AUTOTUNE_SLICE),
                 ("prefetch", prefetch, _AUTOTUNE_SLICE),
                 ("tracing", tracing, _OBS_SLICE),
                 ("slo", slo, _OBS_SLICE),
@@ -160,12 +171,21 @@ class PPRService:
             self.convergence: Optional[ConvergencePolicy] = ConvergencePolicy()
         else:
             self.convergence = early_exit or None
+        if warm_start is True:
+            self._warm: Optional[WarmStartStore] = WarmStartStore()
+        elif warm_start:
+            self._warm = WarmStartStore(capacity_per_graph=int(warm_start))
+        else:
+            self._warm = None
         self._graphs: Dict[str, RegisteredGraph] = {}
         self._wave_counter = 0
-        # Guards the quick mutation sections (scheduler, cache, wave
+        # Guards the quick mutation sections (scheduler, cache, deltas, wave
         # bookkeeping); engine compute runs outside it.  RLock:
         # PPRFuture.result() re-enters through _drive on the same thread.
         self._lock = threading.RLock()
+        # last cold (unseeded) iteration count per (graph, precision): the
+        # baseline warm_start_iterations_saved is measured against
+        self._cold_iters: Dict[Tuple[str, str], int] = {}
 
     # ------------------------------------------------------------------
     def register_graph(self, name: str, g, formats: Sequence[Precision] = (),
@@ -202,16 +222,21 @@ class PPRService:
                     f"new graph", code="graph-replaced"))
             self.recorder.record_event("graph_replaced", self.time_fn(),
                                        graph=name)
+            if self._warm is not None:
+                self._warm.drop_graph(name)
             self.telemetry.forget_graph_demand(name)
         rg: RegisteredGraph = members[0].make_graph(
             name, g, packet=packet, device=self.device)
         rg.engine_family = family
         if not members[0].fixed:          # float member present: prepare it
             members[0].prepare(rg)
+            rg.arm(members[0])
         for p in formats:
             fmt = normalize_precision(p)
             if fmt is not None:
-                engine_for(family, True).prepare(rg, fmt)
+                fixed_engine = engine_for(family, True)
+                fixed_engine.prepare(rg, fmt)
+                rg.arm(fixed_engine)
         self._graphs[name] = rg
         return rg
 
@@ -220,14 +245,104 @@ class PPRService:
         return tuple(self._graphs)
 
     def registered_graph(self, name: str) -> RegisteredGraph:
-        """The live registered-graph state."""
+        """The live registered-graph state (its ``.source`` is the current
+        host ``COOGraph`` — the base external drivers synthesize deltas
+        against)."""
         if name not in self._graphs:
             raise KeyError(f"graph {name!r} is not registered "
                            f"(have {list(self._graphs)})")
         return self._graphs[name]
 
-    def apply_delta(self, name: str, delta) -> Dict[str, float]:
-        raise _later("PPRService.apply_delta", _DELTA_SLICE)
+    def apply_delta(self, name: str, delta: EdgeDelta) -> Dict[str, float]:
+        """Absorb an edge delta into a live registered graph — no
+        stop-the-world re-registration.
+
+        The graph's epoch is bumped (cache keys and wave keys are
+        epoch-tagged), and invalidation is *scoped*: only cache entries and
+        pending futures whose personalization vertex falls in the delta's
+        affected frontier (touched vertices plus their in-neighbors — the
+        one-hop, α-weighted blast radius) are dropped.  Everything else is
+        retagged to the new epoch and keeps serving: entries outside the
+        frontier see only multi-hop, α²-damped rank shifts, a bounded
+        staleness.  Surviving pending futures move to the new epoch's wave
+        keys with their admission budgets intact — they resolve against the
+        new topology.  Frontier futures are *rejected* with a descriptive
+        ``QueryRejected`` (never left forever-pending).  The host merge is
+        followed by each armed engine's device refresh (incremental
+        requantization upload; on the fused family the dirty blocks
+        re-packetized and a new dst stream uploaded), so the delta pays its
+        device cost here.  A wave planned before the delta finishes on the
+        tensors its plan bound and caches under its own epoch.
+
+        The reference also decays the autotune controller's quality windows
+        and tells the prefetcher which hot entries were dropped; both
+        objects come with the autotune slice, so there is nothing to call
+        here yet.
+
+        Returns a report dict (also folded into telemetry): epoch, edge
+        counts, scoped-invalidation accounting, apply latency."""
+        with self._lock:  # a delta must not race a wave's bookkeeping
+            return self._apply_delta_locked(name, delta)
+
+    def _apply_delta_locked(self, name: str, delta: EdgeDelta) -> Dict[str, float]:
+        if name not in self._graphs:
+            raise KeyError(f"graph {name!r} is not registered "
+                           f"(have {list(self._graphs)})")
+        rg = self._graphs[name]
+        t0 = self.time_fn()
+        frontier = delta.affected_frontier(rg.source)
+        fr = frozenset(int(v) for v in frontier)
+        info = rg.apply_delta(delta)
+        for eng in rg.armed_engines():
+            eng.on_delta(rg, info)
+        epoch = rg.epoch
+
+        def retag(key):
+            if key[0] != name:
+                return key
+            if int(key[2]) in fr:
+                return None
+            return (key[0], epoch) + tuple(key[2:])
+
+        cache_dropped, cache_retained = self.cache.remap(retag)
+        moved = self.scheduler.extract(lambda k: k[0] == name)
+        pending_dropped = pending_requeued = 0
+        for key, fut, enqueued_at, deadline in moved:
+            if int(fut.query.vertex) in fr:
+                pending_dropped += 1
+                fut._reject(QueryRejected(
+                    f"pending query for vertex {fut.query.vertex} on graph "
+                    f"{name!r} was invalidated by an edge delta (epoch "
+                    f"{epoch}): its personalization vertex is inside the "
+                    f"delta's affected frontier — resubmit to recompute on "
+                    f"the new topology", code="delta-invalidated"))
+            else:
+                new_key = (key[0], key[1], key[2], epoch)
+                fut._wave_key = new_key
+                self.scheduler.submit(new_key, fut, deadline=deadline,
+                                      now=enqueued_at)
+                pending_requeued += 1
+        if self._warm is not None:
+            self._warm.grow(name, rg.num_vertices)
+        self.telemetry.record_delta(delta.num_added, delta.num_removed,
+                                    cache_dropped, cache_retained,
+                                    pending_dropped)
+        self.recorder.record_event(
+            "delta", self.time_fn(), graph=name, epoch=epoch,
+            edges_added=delta.num_added, edges_removed=delta.num_removed,
+            cache_dropped=cache_dropped, pending_dropped=pending_dropped)
+        return {
+            "epoch": epoch,
+            "edges_added": delta.num_added,
+            "edges_removed": delta.num_removed,
+            "num_vertices": rg.num_vertices,
+            "frontier_size": len(fr),
+            "cache_dropped": cache_dropped,
+            "cache_retained": cache_retained,
+            "pending_dropped": pending_dropped,
+            "pending_requeued": pending_requeued,
+            "apply_s": self.time_fn() - t0,
+        }
 
     # ------------------------------------------------------------------
     def queue_depth(self) -> int:
@@ -246,13 +361,18 @@ class PPRService:
 
     def _cache_key(self, q: PPRQuery, pkey: str,
                    epoch: Optional[int] = None) -> Tuple:
-        # graph epoch + resolved precision + iteration budget + early-exit:
-        # results computed under different numerics never alias (epoch at
-        # [1], vertex at [2], as in the reference)
+        # graph epoch + resolved precision + iteration budget + early-exit +
+        # warm-start mode: a result computed on an older topology or under
+        # different numerics must never alias a current entry.  Scoped delta
+        # invalidation relies on this layout (epoch at [1], vertex at [2]).
+        # Wave resolution passes the wave's own epoch: a delta can land
+        # while a wave computes outside the lock, and the current epoch
+        # would file the stale wave's results under the new one.
         if epoch is None:
             epoch = getattr(self._graphs.get(q.graph), "epoch", 0)
         return (q.graph, epoch, int(q.vertex), pkey,
-                int(q.k), int(self.iterations), self.convergence is not None)
+                int(q.k), int(self.iterations), self.convergence is not None,
+                self._warm is not None)
 
     # ------------------------------------------------------------------
     # futures API
@@ -353,10 +473,39 @@ class PPRService:
 
     def telemetry_summary(self) -> Dict[str, float]:
         """Telemetry counters (cache_* = submit-path view) plus the LRU's own
-        stats under lru_*."""
+        stats under lru_* and, with warm start, the store's under warm_*."""
         s = self.telemetry.summary()
         s.update({f"lru_{k}": v for k, v in self.cache.stats().items()})
+        if self._warm is not None:
+            s.update({f"warm_{k}": v for k, v in self._warm.stats().items()})
         return s
+
+    # ------------------------------------------------------------------
+    def _warm_seed(self, rg: RegisteredGraph, wave: Wave, pkey: str,
+                   Vmat: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """``(P0, warm columns)``: the wave's start state, with each column
+        whose personalization vertex has a stored converged column seeded from
+        it instead of the one-hot restart.  A stored column counts only if it
+        has the plan's vertex count (``Vmat``'s rows): a delta may have moved
+        ``rg.num_vertices`` since the plan was bound."""
+        num_vertices = int(Vmat.shape[0])
+        cols, seeds = [], []
+        for col, fut in enumerate(wave.items):
+            s = self._warm.get(rg.name, int(fut.query.vertex), pkey)
+            if s is not None and s.shape[0] == num_vertices:
+                cols.append(col)
+                seeds.append(s)
+        if not seeds:
+            return Vmat, 0
+        host = np.stack(seeds, axis=1)
+        if host.dtype == np.uint32:        # raw Qm.f bits → the int32 domain
+            host = host.view(np.int32)
+        P0 = Vmat.clone()
+        P0[:, cols] = torch.as_tensor(host, device=Vmat.device)
+        # pad columns duplicate column 0's personalization vertex; mirror its
+        # seed too, or a cold pad column gates the wave's (global) early exit
+        P0[:, len(wave.items):] = P0[:, :1]
+        return P0, len(seeds)
 
     # ------------------------------------------------------------------
     def _run_wave(self, wave: Wave) -> List[Recommendation]:
@@ -395,7 +544,10 @@ class PPRService:
         for enq in wave.enqueued_at:
             self.telemetry.record_admission_wait(max(0.0, t0 - enq))
 
+        # the graph's engine family decides how its waves iterate; arming
+        # keeps late-bound engines in the delta device-refresh loop
         engine = engine_for(rg.engine_family, fmt is not None)
+        rg.arm(engine)
         plan = engine.plan(rg, fmt, alpha=self.alpha,
                            iterations=self.iterations,
                            convergence=self.convergence,
@@ -409,12 +561,29 @@ class PPRService:
         Vmat = plan.initial(pers)
         t_plan = self.time_fn()
         self.telemetry.record_stage("plan", t_plan - t0)
-        P, iters_run = plan.iterate(lambda P_: plan.step(Vmat, P_), Vmat)
+        P0, warm_cols = (self._warm_seed(rg, wave, pkey, Vmat)
+                         if self._warm is not None else (Vmat, 0))
+        t_warm = self.time_fn()
+        self.telemetry.record_stage("warm_start", t_warm - t_plan)
+        P, iters_run = plan.iterate(lambda P_: plan.step(Vmat, P_), P0)
         if iters_run < self.iterations:
             self.telemetry.record_early_exit(self.iterations - iters_run)
         self.telemetry.record_wave_iterations(iters_run)
+        if self._warm is not None:
+            P_host = P.cpu().numpy()       # one copy of the state a wave
+            if plan.fixed:
+                P_host = P_host.view(np.uint32)
+            for col, q in enumerate(queries):
+                self._warm.put(graph_name, int(q.vertex), pkey,
+                               P_host[:, col].copy())
+            if warm_cols:
+                base = self._cold_iters.get((graph_name, pkey))
+                warm_saved = max(0, base - iters_run) if base is not None else 0
+                self.telemetry.record_warm_start(warm_cols, warm_saved)
+            else:
+                self._cold_iters[(graph_name, pkey)] = iters_run
         t_iter = self.time_fn()
-        self.telemetry.record_stage("iterate", t_iter - t_plan)
+        self.telemetry.record_stage("iterate", t_iter - t_warm)
 
         k_max = max(q.k for q in queries)
         idx, vals = plan.topk(P, k_max, pers)

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import coo as tcoo  # noqa: E402
 from repro_torch.core import fixed_point as tfp  # noqa: E402
 from repro_torch.core.coo import COOGraph  # noqa: E402
+from repro_torch.graph_updates import EdgeDelta, random_delta  # noqa: E402
 from repro_torch.graphs import erdos_renyi  # noqa: E402
 from repro_torch.core.quantization import quantize_weights  # noqa: E402
 from repro_torch.kernels import fused_ppr as tfused  # noqa: E402
@@ -30,6 +31,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_gqa,
     flash_attention_gqa_plain,
 )
+from repro_torch.ppr_serving import FusedRegisteredGraph, get_engine  # noqa: E402
 
 ALPHA = 0.85
 V_PRIME = 641
@@ -172,6 +174,127 @@ def test_cuda_two_calls_in_a_row_give_the_same_bits(cuda, fmt):
         torch.testing.assert_close(dm1.cpu(), dm_p, rtol=1e-5, atol=1e-8)
     else:
         assert torch.equal(dm1.cpu(), dm_p)
+
+
+# ---------------------------------------------------------------------------
+# edge deltas: the fused family's refreshed dst stream on the card
+# ---------------------------------------------------------------------------
+def _fused_rg(g, device, **kw):
+    kw.setdefault("packet", 64)
+    kw.setdefault("v_tile", 128)
+    rg = FusedRegisteredGraph("g", g, device=device, **kw)
+    get_engine("fused_float").prepare(rg)
+    get_engine("fused_fixed").prepare(rg, tfp.Q1_25)
+    return rg
+
+
+def _refreshed(g, delta, device, **kw):
+    rg = _fused_rg(g, device, **kw)
+    rg.apply_delta(delta)
+    for key in ("fused_float", "fused_fixed"):
+        get_engine(key).on_delta(rg, None)
+    return rg
+
+
+def _all_edges_removed():
+    g = COOGraph.from_edges(np.array([0, 1, 2, 2]), np.array([1, 2, 0, 3]), 5)
+    return g, EdgeDelta(remove_src=g.y, remove_dst=g.x)
+
+
+def _dangling_filled():
+    """Every dangling vertex (the tail from 601) gets an out-edge: the
+    refreshed dangling list is empty."""
+    g = _prime_graph(seed=8)
+    tail = np.nonzero(g.dangling)[0]
+    return g, EdgeDelta(add_src=tail, add_dst=np.zeros_like(tail))
+
+
+def _recut():
+    """255,990 edges take 32-edge slices, 64 more take 64-edge slices."""
+    rng = np.random.default_rng(4)
+    g = COOGraph.from_edges(rng.integers(0, 20_000, 255_990),
+                            rng.integers(0, 20_000, 255_990), 20_000)
+    return g, EdgeDelta(add_src=rng.integers(0, 20_000, 64),
+                        add_dst=rng.integers(0, 20_000, 64))
+
+
+DELTA_CASES = {
+    "random": lambda: (_prime_graph(seed=6),
+                       random_delta(_prime_graph(seed=6), np.random.default_rng(0),
+                                    n_add=40, n_remove=20)),
+    "growth": lambda: (_prime_graph(seed=6),
+                       random_delta(_prime_graph(seed=6), np.random.default_rng(1),
+                                    n_add=10, n_remove=5, grow=130)),
+    "dangling_emptied": _dangling_filled,
+    "dangling_grows": lambda: (_prime_graph(seed=9), EdgeDelta(
+        remove_src=_prime_graph(seed=9).y[:300], remove_dst=_prime_graph(seed=9).x[:300])),
+    "all_edges_removed": _all_edges_removed,
+    "slices_recut": _recut,
+}
+
+
+@pytest.mark.parametrize("case", sorted(DELTA_CASES))
+def test_cuda_refresh_equals_fresh_registration_and_kernel_matches_plain(cuda, case):
+    """After a delta the card's stream, dangling list and values equal a
+    fresh registration's, and kernel 2 on the refreshed stream equals its
+    plain version (float32: rtol 1e-5 + atol 1e-9 and 1e-6; Q1.25: raw
+    bits) — over a growth delta, one that empties the dangling list, one
+    that removes every edge, and one that re-cuts the slices."""
+    g, delta = DELTA_CASES[case]()
+    kw = dict(packet=256, v_tile=4096) if case == "slices_recut" else {}
+    rg = _refreshed(g, delta, cuda, **kw)
+    fresh = _fused_rg(rg.source, cuda, **kw)
+    topo, ftopo = rg.fused_topology(), fresh.fused_topology()
+    for f in ("row_ptr", "col", "nz_rows", "slice_row"):
+        assert torch.equal(getattr(topo, f), getattr(ftopo, f)), f
+    assert (topo.slice_edges, topo.src_rows) == (ftopo.slice_edges, ftopo.src_rows)
+    assert torch.equal(rg.fused_dangling(), fresh.fused_dangling())
+    if case == "dangling_emptied":
+        assert rg.fused_dangling().numel() == 0
+    if case == "all_edges_removed":
+        assert topo.num_edges == 0
+    if case == "slices_recut":
+        assert topo.slice_edges == 64
+    v = rg.num_vertices
+    rng = np.random.default_rng(2)
+    p = torch.from_numpy((rng.random((v, 16)) * 2 / v).astype(np.float32))
+    vm = torch.zeros((v, 16))
+    vm[torch.arange(16) % v, torch.arange(16)] = 1.0
+    for fmt in (None, tfp.Q1_25):
+        assert torch.equal(rg.fused_values(fmt), fresh.fused_values(fmt))
+        pf, vmf = (p, vm) if fmt is None else (fmt.from_float(p), fmt.from_float(vm))
+        cpu_args = (topo.to("cpu"), rg.fused_values(fmt).cpu(),
+                    rg.fused_dangling().cpu(), vmf, pf)
+        P_k, res_k = tfused.fused_ppr_iteration(
+            topo, rg.fused_values(fmt), rg.fused_dangling(), vmf.to(cuda), pf.to(cuda),
+            alpha=ALPHA, fmt=fmt)
+        _check_fused(P_k, res_k, *tfused.fused_ppr_iteration(*cpu_args, alpha=ALPHA, fmt=fmt),
+                     fmt is not None)
+
+
+def test_cuda_deltas_release_the_old_stream(cuda):
+    """Device memory after five refreshes stays within one stream (topology,
+    dangling list, f32 and Q1.25 values) of what it was after the first."""
+    g = erdos_renyi(20_000, 200_000, seed=3)
+    rg = _fused_rg(g, cuda, packet=256, v_tile=512)
+    rng = np.random.default_rng(0)
+
+    def one_delta():
+        rg.apply_delta(random_delta(rg.source, rng, n_add=256, n_remove=128))
+        for key in ("fused_float", "fused_fixed"):
+            get_engine(key).on_delta(rg, None)
+        torch.cuda.synchronize()
+
+    one_delta()
+    base = torch.cuda.memory_allocated(cuda)
+    topo = rg.fused_topology()
+    stream_bytes = sum(t.numel() * t.element_size() for t in (
+        topo.row_ptr, topo.col, topo.nz_rows, topo.slice_row, rg.fused_dangling(),
+        rg.fused_values(None), rg.fused_values(tfp.Q1_25)))
+    del topo
+    for _ in range(5):
+        one_delta()
+    assert torch.cuda.memory_allocated(cuda) <= base + stream_bytes
 
 
 # flash attention: float32 to 1e-4 (the kernel and the plain version sum in

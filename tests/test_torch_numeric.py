@@ -130,11 +130,20 @@ def test_fused_layout_array_equal_fresh_and_incremental():
     tl = tfused.build_fused_layout(tg, 128, 64)
     for f in fields:
         assert np.array_equal(getattr(rl, f), getattr(tl, f)), f
-    # incremental rebuild of dirty blocks reuses the clean blocks' arrays
+    # incremental rebuild of dirty blocks reuses the clean blocks' arrays and
+    # equals the fresh build; the reference's equals it but in step_src,
+    # where it gives a clean block's rows the dst block
+    # (src/repro/kernels/fused_ppr.py:190, ROADMAP.md §3)
     ri = rfused.build_fused_layout(g, 128, 64, reuse=rl, dirty=[0, 3])
     ti = tfused.build_fused_layout(tg, 128, 64, reuse=tl, dirty=[0, 3])
     for f in fields:
-        assert np.array_equal(getattr(ri, f), getattr(ti, f)), f
+        assert np.array_equal(getattr(ti, f), getattr(rl, f)), f
+        if f != "step_src":
+            assert np.array_equal(getattr(ri, f), getattr(ti, f)), f
+    clean = np.isin(ri.step_dst, [1, 2, 4]) & (ri.step_row != ri.num_rows - 1)
+    clean[:ri.n_prologue] = False
+    assert np.array_equal(ri.step_src[clean], ri.step_dst[clean])
+    assert not np.array_equal(ri.step_src, rl.step_src)
     assert ti.row_x[1] is tl.row_x[1]
     rq = rfused.quantize_layout_rows(rl, rfp.Q1_19)
     tq = tfused.quantize_layout_rows(tl, tfp.Q1_19)

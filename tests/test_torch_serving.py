@@ -270,7 +270,7 @@ def test_service_on_cuda_raises_without_a_gpu():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(tracing=True), dict(warm_start=True), dict(prefetch=True),
+    dict(tracing=True), dict(prefetch=True),
     dict(slo=True), dict(otlp=object()), dict(autotune=object()),
 ], ids=lambda kw: next(iter(kw)))
 def test_later_slice_options_raise_not_implemented(kwargs):
@@ -284,7 +284,6 @@ def test_later_slice_calls_raise_not_implemented():
     svc.register_graph("g", g)
     for call in (lambda: svc.submit(TQuery("g", 1, precision="auto")),
                  lambda: svc.register_graph("m", g, mesh=object()),
-                 lambda: svc.apply_delta("g", None),
                  lambda: svc.serve([]), lambda: svc.pump(), lambda: svc.drain()):
         with pytest.raises(NotImplementedError):
             call()
