@@ -63,7 +63,25 @@ exits non-zero.  It prints, in order:
    smoke reading of a host-bound loop): tokens/s, prefill ms, decode-step
    ms p50/p95; (d) the same at a serving shape: one wave of 32 requests,
    1,024-token prompts, 128 new tokens each;
-8. a ``{"kernels": [...]}`` JSON line, then the card line, then the
+8. autotune, prefetch and the driver, after phase 4b: (a) 24 waves of 16
+   ``precision="auto"`` queries (``AutotuneConfig()``: ladder 20/22/24/26,
+   target 0.95, a quarter sampled from seed 0; a hot set of 16 and a cold
+   pool) on gnp_2e5 and pl_2e5 through a fused and a single service: the
+   same resolved precisions, promotions and demotions, raw-bit equal fixed
+   answers, float answers within 1e-6, shadow scores within 1e-4, and the
+   fused service's kernel launches split into waves and shadow references;
+   the auto wave's p50 against explicit waves at the resolved format, the
+   shadow cost a sample (float reference, host copy, ranking + NDCG) and
+   each graph's rung; the unreachable ladder (8,) demoting to f32 and then
+   serving through the fused float kernel; (b) prefetch on the fused
+   family: an idle poll warms the hot set, a warmed hit equals a fresh
+   computation, a poll with κ queued is suppressed, a delta queues the
+   dropped hot vertices for re-warming; (c) ``repro_torch.launch.ppr_run``
+   on gnp_2e5 at full size, its default, ``--serve`` and
+   ``--replay-deltas`` modes on the card and the default on the CPU, each
+   a subprocess that exits 0, with equal accuracy blocks and each mode's
+   req/s;
+9. a ``{"kernels": [...]}`` JSON line, then the card line, then the
    ``{"ok": true, ...}`` line last.
 
 Everything too long for the end of the output goes to
@@ -257,21 +275,28 @@ def _library_timings(torch, row, library):
     row["library_device_ms"] = _time_ms(torch, library, hide_host=True)
 
 
+def _check_float_p_next(torch, what, pn_k, pn_p) -> float:
+    """float32 P_next of the kernel against its plain version: rtol 1e-5 +
+    atol 1e-9 and 1e-6 absolutely.  Returns the max abs error."""
+    err = float((pn_k - pn_p).abs().max()) if pn_k.numel() else 0.0
+    if err > 1e-6 or not torch.allclose(pn_k, pn_p, rtol=1e-5, atol=1e-9):
+        _fail(f"{what}: P_next max abs err {err} "
+              f"(limits: rtol 1e-5 + atol 1e-9, and 1e-6)")
+    return err
+
+
 def _check_fused_iteration(torch, what, fargs, fmt) -> float:
     """One ``fused_ppr_iteration`` on the card against its plain version on
     the same operands; returns P_next's max abs error.  Limits: float32
-    P_next rtol 1e-5 + atol 1e-9 and 1e-6 absolutely, L1/Σd² residuals rtol
-    1e-4, ∞ residual 1e-6; fixed point raw bits equal, ∞ residual equal."""
+    P_next as ``_check_float_p_next``, L1/Σd² residuals rtol 1e-4, ∞
+    residual 1e-6; fixed point raw bits equal, ∞ residual equal."""
     from repro_torch.kernels.fused_ppr import fused_ppr_iteration, fused_ppr_plain
 
     fkw = dict(alpha=ALPHA, fmt=fmt)
     pn_k, res_k = fused_ppr_iteration(*fargs, **fkw)
     pn_p, res_p = fused_ppr_plain(*fargs, **fkw)
     if fmt is None:
-        err = float((pn_k - pn_p).abs().max()) if pn_k.numel() else 0.0
-        if err > 1e-6 or not torch.allclose(pn_k, pn_p, rtol=1e-5, atol=1e-9):
-            _fail(f"{what}: P_next max abs err {err} "
-                  f"(limits: rtol 1e-5 + atol 1e-9, and 1e-6)")
+        err = _check_float_p_next(torch, what, pn_k, pn_p)
         for r in (0, 2):
             if not torch.allclose(res_k[r], res_p[r], rtol=1e-4, atol=0.0):
                 _fail(f"{what}: residual row {r} {res_k[r]} vs {res_p[r]}")
@@ -947,6 +972,534 @@ def delta_phase(torch, np, graphs, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: autotune, prefetch and the driver
+# ---------------------------------------------------------------------------
+AUTO_WAVES = 24
+
+
+def _auto_traffic(np, g, seed):
+    """AUTO_WAVES waves of K vertices: half from a seeded hot set of K, half
+    from a cold pool of 4K, drawn as ``ppr_run --replay-deltas`` draws its
+    traffic."""
+    rng = np.random.default_rng(seed)
+    hot = rng.integers(0, g.num_vertices, K)
+    cold = rng.integers(0, g.num_vertices, 4 * K)
+    return [[int(v) for v in np.concatenate([rng.choice(hot, K // 2),
+                                             rng.choice(cold, K // 2)])]
+            for _ in range(AUTO_WAVES)]
+
+
+class _PlainCalls:
+    """Counts calls of ``fused_ppr_plain`` (the kernel's plain version) while
+    armed: on the card's served path there must be none."""
+
+    def __init__(self):
+        from repro_torch.kernels import fused_ppr as kfused
+        self.module, self.inner, self.calls = kfused, kfused.fused_ppr_plain, 0
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.inner(*a, **kw)
+        self.module.fused_ppr_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fused_ppr_plain = self.inner
+
+
+def _clock_shadow(torch, svc):
+    """Wrap the parts of ``svc._shadow_feedback`` on the service's own path:
+    per call that scored samples, (host ms, samples); the host ms of the
+    float reference (``_float_reference``, to a synchronize: the device's
+    time), of the host copies (``_sampled_to_host``) and of ranking + NDCG
+    (``ranking`` and ``controller.observe_shadow``); and the
+    fused_ppr_iteration launches the shadow references made.  The
+    synchronize only moves the wait for the reference out of the first host
+    copy into the reference's own span."""
+    from repro_torch.kernels import fused_ppr_iteration
+    from repro_torch.ppr_serving import service as service_mod
+
+    stats = {"calls": [], "launches": 0, "reference_ms": 0.0, "host_copy_ms": 0.0,
+             "ranking_ndcg_ms": 0.0}
+
+    def clocked(part, inner, sync=False):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            stats[part] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    svc._float_reference = clocked("reference_ms", svc._float_reference, sync=True)
+    svc._sampled_to_host = clocked("host_copy_ms", svc._sampled_to_host)
+    svc.controller.observe_shadow = clocked("ranking_ndcg_ms", svc.controller.observe_shadow)
+    rank = clocked("ranking_ndcg_ms", service_mod.ranking)
+    inner = svc._shadow_feedback
+
+    def timed(*a, **kw):
+        n0 = svc.controller.estimator.shadow_evaluations
+        l0 = fused_ppr_iteration.launches
+        plain_rank, service_mod.ranking = service_mod.ranking, rank
+        t0 = time.perf_counter()
+        try:
+            inner(*a, **kw)
+        finally:
+            service_mod.ranking = plain_rank
+        dt = time.perf_counter() - t0
+        stats["launches"] += fused_ppr_iteration.launches - l0
+        n = svc.controller.estimator.shadow_evaluations - n0
+        if n:
+            stats["calls"].append((dt * 1e3, n))
+
+    svc._shadow_feedback = timed
+    return stats
+
+
+def _timed_waves(torch, svc, query_cls, traffic, precision, target=None):
+    """Serve each wave of ``traffic`` through ``run_batch``; (answers, host
+    seconds a wave, the call ending on a synchronize)."""
+    recs, secs = [], []
+    for verts in traffic:
+        t0 = time.perf_counter()
+        recs.append(svc.run_batch([query_cls("g", v, k=10, precision=precision,
+                                             quality_target=target) for v in verts]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return recs, secs
+
+
+SHADOW_K = (1, 3, 4)     # sampled columns: K % 4 != 0 takes the one-wide template
+
+
+def _check_shadow_shapes(torch, np, name, svc, verts):
+    """``fused_ppr_iteration`` on the shadow reference's operands: the fused
+    float plan's V over the first K of ``verts`` for each K in SHADOW_K, and
+    each of its ten iterates as the reference chains them.
+
+    P_next is held at phase 2's limits to the plain version evaluated in
+    float64 on the same operands: the float32 plain version sums a row by
+    atomics in no fixed order, and on pl_2e5's hub rows (18,187 in-edges)
+    it lands up to ~8e-7 from the exact value, run to run, where the
+    kernel's fixed-order sum stays within ~2e-8.  The residual rows are held
+    at phase 2's limits (L1/Σd² rtol 1e-4, ∞ 1e-6) to those of the kernel's
+    own P_next, in float64 from the same P: near convergence |P_next − P|
+    shrinks to the plain version's error, so the two versions' Σd² rows
+    drift apart.  Returns P_next's max abs error for each K; the largest
+    distance of the float32 plain P_next from the float64 one; the residual
+    rows' largest relative distance from the own-state rows; and the
+    kernel's and the float32 plain Σd² rows' largest relative distance."""
+    from repro_torch.kernels.fused_ppr import fused_ppr_iteration, fused_ppr_plain
+    from repro_torch.ppr_serving import engine_for
+
+    rg = svc.registered_graph("g")
+    plan = engine_for("fused", False).plan(rg, None, alpha=ALPHA, iterations=10)
+    topo, val, dang = rg.fused_topology(), rg.fused_values(None), rg.fused_dangling()
+    val64 = val.double()
+    errs, plain_err, own_rel, plain_rel = {}, 0.0, 0.0, 0.0
+
+    def rel(a, b):
+        return float(((a.double() - b.double()).abs() / b.double().abs().clamp_min(1e-30)).max())
+
+    for k in SHADOW_K:
+        vm = plan.initial(torch.as_tensor(np.asarray(verts[:k], np.int32), device=rg.device))
+        p, err = vm, 0.0
+        for it in range(10):
+            what = f"shadow-shaped {name} K={k} iteration {it + 1}"
+            pn, res = fused_ppr_iteration(topo, val, dang, vm, p, alpha=ALPHA, fmt=None)
+            pn64, _ = fused_ppr_plain(topo, val64, dang, vm.double(), p.double(),
+                                      alpha=ALPHA, fmt=None)
+            pn_p, res_p = fused_ppr_plain(topo, val, dang, vm, p, alpha=ALPHA, fmt=None)
+            err = max(err, _check_float_p_next(torch, what, pn.double(), pn64))
+            plain_err = max(plain_err, float((pn_p.double() - pn64).abs().max()))
+            d = (pn.double() - p.double()).abs()
+            own = torch.stack([d.sum(0), d.amax(0), (d * d).sum(0)])
+            for r in (0, 2):
+                if not torch.allclose(res[r].double(), own[r], rtol=1e-4, atol=0.0):
+                    _fail(f"{what}: residual row {r} {res[r]} vs its own P_next's {own[r]}")
+            if float((res[1].double() - own[1]).abs().max()) > 1e-6:
+                _fail(f"{what}: inf residual {res[1]} vs its own P_next's {own[1]}")
+            own_rel = max(own_rel, rel(res[0], own[0]), rel(res[2], own[2]))
+            plain_rel = max(plain_rel, rel(res[2], res_p[2]))
+            p = pn
+        errs[k] = err
+    return dict(max_abs_err=errs, plain_f32_max_abs_err=plain_err,
+                residual_vs_own_rel=own_rel, sumsq_vs_plain_rel=plain_rel)
+
+
+def _near_ties(torch, np, services, verts):
+    """The fused and the single family's float32 references for ``verts``
+    (the shadow reference's shape) and the same ten iterations in float64
+    (the fused family's plain version): each family's max abs distance from
+    the float64 state and from each other, the rank positions at which the
+    two rankings differ, and the largest gap (in the single family's scores)
+    between neighbours of the single family's ranking that the fused one
+    puts in the other order.  Served fixed-point states are bit-equal, so
+    shadow scores differ between the families only through such swaps; an
+    inverted gap no larger than the max abs difference makes each a
+    near-tie.  Fails when the fused reference, the kernel's, lies more than
+    1e-6 from the float64 state anywhere."""
+    from repro_torch.core.metrics import ranking
+    from repro_torch.kernels.fused_ppr import fused_ppr_plain
+    from repro_torch.ppr_serving import engine_for
+
+    refs = []
+    for svc in services:
+        rg = svc.registered_graph("g")
+        plan = engine_for(rg.engine_family, False).plan(rg, None, alpha=ALPHA,
+                                                       iterations=10)
+        v0 = plan.initial(torch.as_tensor(np.asarray(verts, np.int32), device=rg.device))
+        p = v0
+        for _ in range(10):
+            p = plan.step(v0, p)
+        refs.append(p.cpu().numpy().astype(np.float64))
+    rg = services[0].registered_graph("g")
+    head = (rg.fused_topology(), rg.fused_values(None).double(), rg.fused_dangling())
+    v64 = engine_for("fused", False).plan(rg, None, alpha=ALPHA, iterations=10).initial(
+        torch.as_tensor(np.asarray(verts, np.int32), device=rg.device)).double()
+    p64 = v64
+    for _ in range(10):
+        p64, _ = fused_ppr_plain(*head, v64, p64, alpha=ALPHA, fmt=None)
+    exact = p64.cpu().numpy()
+    rf, rs = refs
+    fused_err = float(np.abs(rf - exact).max())
+    if fused_err > 1e-6:
+        _fail(f"fused float32 reference over {len(verts)} columns lies {fused_err} from "
+              f"the float64 iterations (limit 1e-6)")
+    moved, gap = 0, 0.0
+    for j in range(len(verts)):
+        order_s, order_f = ranking(rs[:, j]), ranking(rf[:, j])
+        moved += int((order_s != order_f).sum())
+        pos_f = np.empty_like(order_f)
+        pos_f[order_f] = np.arange(order_f.size)
+        inv = np.nonzero(pos_f[order_s[:-1]] > pos_f[order_s[1:]])[0]
+        if inv.size:
+            gap = max(gap, float((rs[order_s[inv], j] - rs[order_s[inv + 1], j]).max()))
+    return dict(max_abs_diff=float(np.abs(rf - rs).max()), fused_vs_float64=fused_err,
+                single_vs_float64=float(np.abs(rs - exact).max()),
+                rank_positions_moved=moved, max_inverted_gap=gap)
+
+
+def _auto_graph(torch, np, name, g, dev, card):
+    """(a) on one graph: the same auto traffic through a fused and a single
+    service with ``AutotuneConfig()``'s defaults, held to each other; then
+    the same waves at the fused service's resolved format, explicitly."""
+    from repro_torch.autotune import AutotuneConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+
+    traffic = _auto_traffic(np, g, seed=0)
+    runs = {}
+    for engine in ("fused", "single"):
+        svc = PPRService(kappa=K, iterations=10, alpha=ALPHA, autotune=AutotuneConfig(),
+                         cache_capacity=0, device=dev)
+        svc.register_graph("g", g, engine=engine)
+        shadow = _clock_shadow(torch, svc)
+        with _PlainCalls() as plain:
+            reset_launch_counts()
+            recs, secs = _timed_waves(torch, svc, PPRQuery, traffic, "auto")
+            launches = launch_counts()["fused_ppr_iteration"]
+        runs[engine] = dict(svc=svc, recs=recs, secs=secs, shadow=shadow,
+                            launches=launches, plain_calls=plain.calls)
+    f, s = runs["fused"], runs["single"]
+    fs, ss = f["svc"], s["svc"]
+    for wf, ws in zip(f["recs"], s["recs"]):
+        if [r.precision for r in wf] != [r.precision for r in ws]:
+            _fail(f"auto {name}: resolved precisions differ between fused and single")
+        _same_answers(np, f"auto {name} fused vs single", wf, ws)
+    for key in ("promotions", "demotions"):
+        if getattr(fs.controller, key) != getattr(ss.controller, key):
+            _fail(f"auto {name}: {key} {getattr(fs.controller, key)} (fused) vs "
+                  f"{getattr(ss.controller, key)} (single)")
+    if fs.controller.summary() != ss.controller.summary():
+        _fail(f"auto {name}: controllers differ: {fs.controller.summary()} vs "
+              f"{ss.controller.summary()}")
+    sf, sc = fs.telemetry.shadow_scores, ss.telemetry.shadow_scores
+    if len(sf) != len(sc) or not sf:
+        _fail(f"auto {name}: {len(sf)} shadow scores (fused) vs {len(sc)} (single)")
+    score_diff = float(np.abs(np.asarray(sf) - np.asarray(sc)).max())
+    if score_diff > 1e-4:
+        _fail(f"auto {name}: shadow scores differ by {score_diff} (limit 1e-4)")
+    wave_launches = f["launches"] - f["shadow"]["launches"]
+    if wave_launches != AUTO_WAVES * 10 or f["shadow"]["launches"] <= 0 \
+            or f["shadow"]["launches"] % 10:
+        _fail(f"auto {name}: fused_ppr_iteration launches {f['launches']} (waves "
+              f"{wave_launches}, shadow references {f['shadow']['launches']})")
+    if f["plain_calls"] or s["launches"]:
+        _fail(f"auto {name}: {f['plain_calls']} plain fused calls on the card, "
+              f"{s['launches']} kernel launches by the single family")
+    rung = fs.controller.rung_key("g")
+    resolved = fs.controller.resolve("g")
+    # the same waves at the resolved format, explicitly (no shadow): warm-up
+    # wave first, so the format's upload is not timed
+    precision = None if resolved is None else resolved.name
+    explicit = PPRService(kappa=K, iterations=10, alpha=ALPHA, cache_capacity=0,
+                          device=dev)
+    explicit.register_graph("g", g, formats=[] if resolved is None else [resolved],
+                            engine="fused")
+    _timed_waves(torch, explicit, PPRQuery, traffic[:1], precision)
+    explicit.telemetry.reset()
+    _, x_secs = _timed_waves(torch, explicit, PPRQuery, traffic, precision)
+    calls = f["shadow"]["calls"]
+    samples = sum(n for _, n in calls)
+    split = {part: f["shadow"][part] / samples
+             for part in ("reference_ms", "host_copy_ms", "ranking_ndcg_ms")}
+    shapes = _check_shadow_shapes(torch, np, name, fs, traffic[-1])
+    ties = _near_ties(torch, np, (fs, ss), traffic[-1][:3])
+    out = dict(
+        graph=name, rung=rung, rung_bits=fs.controller.summary(),
+        promotions=fs.controller.promotions, demotions=fs.controller.demotions,
+        served_by_precision=dict(fs.telemetry.served_by_precision),
+        shadow_samples=samples, shadow_calls=len(calls),
+        shadow_score_max_diff=score_diff, shadow_quality_mean=float(np.mean(sf)),
+        launches_fused=f["launches"], launches_waves=wave_launches,
+        launches_shadow=f["shadow"]["launches"],
+        auto_wave_ms_p50=statistics.median(f["secs"]) * 1e3,
+        auto_wave_ms_p95=float(np.percentile(f["secs"], 95)) * 1e3,
+        single_auto_wave_ms_p50=statistics.median(s["secs"]) * 1e3,
+        explicit_wave_ms_p50=statistics.median(x_secs) * 1e3,
+        auto_wave_latency_p50_ms=fs.telemetry_summary()["wave_latency_p50_s"] * 1e3,
+        explicit_wave_latency_p50_ms=explicit.telemetry_summary()["wave_latency_p50_s"] * 1e3,
+        shadow_ms_per_sample=sum(ms for ms, _ in calls) / samples,
+        shadow_split_ms_per_sample=split, shadow_shapes=shapes,
+        float_reference_near_ties=ties)
+    print(f"[autotune] {name}: {AUTO_WAVES} waves of {K} auto queries, fused and single "
+          f"identical (precisions, answers, controllers; shadow scores within "
+          f"{score_diff:.2e}); rung {rung}, promotions {out['promotions']}, demotions "
+          f"{out['demotions']}, served {out['served_by_precision']}; {samples} shadow "
+          f"samples in {len(calls)} references; fused_ppr_iteration launches "
+          f"{wave_launches} (waves) + {f['shadow']['launches']} (shadow references), "
+          f"0 plain calls ({card})")
+    print(f"[autotune] {name}: auto wave p50 {out['auto_wave_ms_p50']:.3f} ms (p95 "
+          f"{out['auto_wave_ms_p95']:.3f}; single family {out['single_auto_wave_ms_p50']:.3f}) "
+          f"against explicit {precision or 'f32'} wave p50 {out['explicit_wave_ms_p50']:.3f} "
+          f"ms (run_batch of {K}, host clock to a synchronize); service wave latency "
+          f"p50 {out['auto_wave_latency_p50_ms']:.3f} / {out['explicit_wave_latency_p50_ms']:.3f} "
+          f"ms ({card})")
+    print(f"[autotune] {name}: shadow cost {out['shadow_ms_per_sample']:.3f} ms a sample "
+          f"in the service, of it: float reference {split['reference_ms']:.4f} ms "
+          f"(host clock to a synchronize), host copy {split['host_copy_ms']:.4f} ms, "
+          f"ranking + NDCG {split['ranking_ndcg_ms']:.3f} ms ({card})")
+    print(f"[autotune] {name}: fused_ppr_iteration on the shadow reference's operands, "
+          f"ten iterates each: P_next within "
+          + ", ".join(f"K={k} {e:.2e}" for k, e in shapes["max_abs_err"].items())
+          + f" of the plain version in float64 (phase 2's limits; the float32 plain "
+          f"version's atomics: {shapes['plain_f32_max_abs_err']:.2e}); L1/Σd² rows within "
+          f"{shapes['residual_vs_own_rel']:.2e} (relative) of its own P_next's; Σd² "
+          f"{shapes['sumsq_vs_plain_rel']:.2e} (relative) from the float32 plain rows, "
+          f"not held ({card})")
+    print(f"[autotune] {name}: float32 references over 3 columns against ten float64 "
+          f"iterations: fused {ties['fused_vs_float64']:.3e} (limit 1e-6), single "
+          f"{ties['single_vs_float64']:.3e}; fused vs single {ties['max_abs_diff']:.3e}, "
+          f"{ties['rank_positions_moved']} rank positions differ, largest inverted "
+          f"neighbour gap {ties['max_inverted_gap']:.3e} (near-ties when at most the "
+          f"max abs diff)")
+    return out
+
+
+def _unreachable_auto(torch, np, g, dev, card):
+    """The unreachable ladder of tests/test_autotune.py:354-377 on gnp_2e5:
+    Q1.7 misses 0.95, the first wave's feedback demotes to the f32 rung, and
+    the next wave is served f32 through the fused float kernel."""
+    from repro_torch.autotune import AutotuneConfig, ShadowConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+
+    cfg = AutotuneConfig(ladder=(8,), demote_patience=1,
+                         shadow=ShadowConfig(sample_fraction=1.0, min_samples=1, window=2))
+    svc = PPRService(kappa=K, iterations=10, alpha=ALPHA, autotune=cfg,
+                     cache_capacity=0, device=dev)
+    svc.register_graph("g", g, engine="fused")
+    traffic = _auto_traffic(np, g, seed=1)[:2]
+    launches = []
+    with _PlainCalls() as plain:
+        for verts in traffic:
+            reset_launch_counts()
+            _timed_waves(torch, svc, PPRQuery, [verts], "auto", target=0.95)
+            launches.append(launch_counts()["fused_ppr_iteration"])
+            if len(launches) == 1 and svc.controller.resolve("g", 0.95) is not None:
+                _fail("unreachable target: the first wave's feedback did not demote to f32")
+    served = dict(svc.telemetry.served_by_precision)
+    summ = svc.telemetry_summary()
+    if served != {"Q1.7": K, "f32": K} or svc.controller.demotions != 1 \
+            or summ.get("engine_fused_float_waves") != 1 or launches != [20, 10] \
+            or plain.calls:
+        _fail(f"unreachable target: served {served}, demotions "
+              f"{svc.controller.demotions}, fused float waves "
+              f"{summ.get('engine_fused_float_waves')}, launches {launches}, "
+              f"{plain.calls} plain calls")
+    scores = svc.telemetry.shadow_scores
+    print(f"[autotune] gnp_2e5 ladder (8,), target 0.95: wave 1 at Q1.7 (NDCG@50 mean "
+          f"{np.mean(scores[:K]):.4f} over {K} samples) demoted to f32; wave 2 served f32 "
+          f"by the fused float kernel ({launches[1]} launches; wave 1: {launches[0]}, "
+          f"shadow reference included) ({card})")
+    return dict(served=served, demotions=svc.controller.demotions, launches=launches,
+                q17_ndcg_mean=float(np.mean(scores[:K])))
+
+
+def _prefetch_fused(torch, np, g, dev, card):
+    """(b) prefetch on the fused family: an idle poll warms the hot set, a
+    later query is a cache hit bit-equal to a fresh computation, a poll with
+    κ queued is suppressed, and a delta queues the dropped hot vertices for
+    re-warming (then served from the re-warmed cache, bit-equal to a fresh
+    registration of the merged graph)."""
+    from repro_torch.graph_updates import random_delta
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.ppr_serving import PPRQuery, PPRService, PrefetchConfig
+
+    delta = random_delta(g, np.random.default_rng(31), n_add=1024, n_remove=512)
+    frontier = delta.affected_frontier(g)
+    outside = np.setdiff1d(np.arange(g.num_vertices), frontier)
+    pick = np.random.default_rng(32)
+    inside = [int(v) for v in pick.choice(frontier, K // 2, replace=False)]
+    hot = inside + [int(v) for v in pick.choice(outside, K // 2, replace=False)]
+    svc = PPRService(kappa=K, iterations=10, alpha=ALPHA, max_wait=60.0, device=dev,
+                     prefetch=PrefetchConfig(top_n=K, k=10, max_per_pump=K, min_count=2))
+    svc.register_graph("g", g, formats=[26], engine="fused")
+    queries = [PPRQuery("g", v, k=10, precision=26) for v in hot]
+    svc.run_batch(queries)
+    svc.run_batch(queries)              # two real queries each: hot
+    svc.cache.invalidate(lambda key: True)
+    launches = 0
+
+    def poll():
+        nonlocal launches
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        waves = svc.poll()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches += launch_counts()["fused_ppr_iteration"]
+        return waves, ms, launches
+
+    with _PlainCalls() as plain:
+        waves, warm_ms, n1 = poll()
+        s = svc.telemetry_summary()
+        if waves != 1 or s["prefetch_issued"] != K or n1 != 10:
+            _fail(f"prefetch: the idle poll ran {waves} waves, issued "
+                  f"{s['prefetch_issued']}, {n1} launches")
+
+        def fresh_answers(graph, qs):
+            fresh = PPRService(kappa=K, iterations=10, alpha=ALPHA, cache_capacity=0,
+                               device=dev)
+            fresh.register_graph("g", graph, formats=[26], engine="fused")
+            return fresh.run_batch(qs)
+
+        hit = svc.run_batch(queries[:1])
+        if hit[0].source != "cache":
+            _fail("prefetch: a warmed hot vertex was not served from the cache")
+        _same_answers(np, "prefetch warmed hit vs fresh", hit, fresh_answers(g, queries[:1]))
+        # κ live queries on two streams, neither full nor past its budget
+        cold = [int(v) for v in outside if int(v) not in hot][:K]
+        futs = [svc.submit(PPRQuery("g", v, k=10, precision=26 if i % 2 else None))
+                for i, v in enumerate(cold)]
+        waves, _, _ = poll()
+        if waves or svc.telemetry_summary()["prefetch_suppressed"] != 1:
+            _fail(f"prefetch: a poll with {K} queued ran {waves} waves, suppressed "
+                  f"{svc.telemetry_summary()['prefetch_suppressed']}")
+        svc.flush()
+        if not all(f.done() for f in futs):
+            _fail("prefetch: flush left a live query pending")
+        report = svc.apply_delta("g", delta)
+        queued = svc.telemetry_summary()["prefetch_rewarms_queued"]
+        if queued != len(inside):
+            _fail(f"prefetch: {queued} re-warms queued after the delta, expected "
+                  f"{len(inside)} (the hot vertices in its frontier)")
+        waves, rewarm_ms, _ = poll()
+        rewarmed = svc.run_batch(queries[: len(inside)])
+        if waves != 1 or any(r.source != "cache" for r in rewarmed):
+            _fail("prefetch: the re-warm poll did not warm the dropped hot vertices")
+        _same_answers(np, "prefetch re-warmed vs fresh on the merged graph", rewarmed,
+                      fresh_answers(svc.registered_graph("g").source,
+                                    queries[: len(inside)]))
+    if plain.calls:
+        _fail(f"prefetch: {plain.calls} plain fused calls on the card")
+    s = svc.telemetry_summary()
+    out = dict(prefetch_issued=s["prefetch_issued"], suppressed=s["prefetch_suppressed"],
+               rewarms_queued=queued, frontier_size=report["frontier_size"],
+               cache_dropped=report["cache_dropped"], warm_poll_ms=warm_ms,
+               rewarm_poll_ms=rewarm_ms, launches=launches)
+    print(f"[prefetch] gnp_2e5 fused: idle poll warmed {K} hot vertices in one wave "
+          f"({warm_ms:.2f} ms); a warmed hit equals a fresh computation; a poll with "
+          f"{K} queued was suppressed; a delta (frontier {report['frontier_size']}) "
+          f"queued {queued} re-warms, served from the cache after one poll "
+          f"({rewarm_ms:.2f} ms), equal to a fresh registration; {launches} "
+          f"fused_ppr_iteration launches, 0 plain calls ({card})")
+    return out
+
+
+def _accuracy_block(stdout):
+    lines = stdout.splitlines()
+    at = next(i for i, ln in enumerate(lines) if ln.startswith("accuracy vs CPU oracle"))
+    return lines[at:at + 8]
+
+
+def driver_phase(np, card, timeout=600):
+    """(c) ``python -m repro_torch.launch.ppr_run`` on gnp_2e5 at the paper's
+    size in its three modes on the card, and the default mode on the CPU;
+    each a subprocess that must exit 0.  The accuracy blocks of the card's
+    and the CPU's default runs must be equal to the printed digit."""
+    import os
+    import re
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    base = [sys.executable, "-m", "repro_torch.launch.ppr_run", "--graph", "gnp_2e5",
+            "--scale", "1.0", "--bits", "26", "--kappa", str(K)]
+    modes = {"default": ["--requests", "64"],
+             "serve": ["--requests", "64", "--serve"],
+             "replay-deltas": ["--replay-deltas", "4", "--delta-edges", "1024"],
+             "default-cpu": ["--requests", "64", "--device", "cpu"]}
+    out = {}
+    for mode, extra in modes.items():
+        t0 = time.perf_counter()
+        run = subprocess.run(base + extra, capture_output=True, text=True,
+                             timeout=timeout, env=env, cwd=str(ROOT))
+        wall = time.perf_counter() - t0
+        if run.returncode:
+            _fail(f"ppr_run {mode} exited {run.returncode}: {run.stderr[-2000:]}")
+        if mode == "replay-deltas":
+            served = re.findall(r"re-serve (\d+) q in ([\d.]+)s", run.stdout)
+            rate = sum(int(q) for q, _ in served) / sum(float(s) for _, s in served)
+        else:
+            rate = float(re.search(r"\(([\d.]+) req/s", run.stdout).group(1))
+        out[mode] = dict(req_per_s=rate, wall_s=wall, stdout=run.stdout)
+    acc, acc_cpu = (_accuracy_block(out[m]["stdout"]) for m in ("default", "default-cpu"))
+    if acc != acc_cpu:
+        _fail(f"ppr_run: the card's accuracy block {acc} differs from the CPU's {acc_cpu}")
+    for mode, r in out.items():
+        where = "" if mode != "default-cpu" else " (the CPU: no device metric)"
+        print(f"[driver] ppr_run {mode}: exit 0 in {r['wall_s']:.1f} s, "
+              f"{r['req_per_s']:.1f} req/s{where} ({card})")
+    print(f"[driver] accuracy block, card = CPU: {' | '.join(ln.strip() for ln in acc[1:])}")
+    return out
+
+
+def autotune_phase(torch, np, graphs, dev, card):
+    """Phase 8: (a) auto on the fused family, (b) prefetch, (c) the driver.
+    ``launches`` counts fused_ppr_iteration over the driven paths of (a)'s
+    fused services (waves and shadow references), the unreachable-target
+    waves and (b)'s polls."""
+    t0 = time.perf_counter()
+    auto = {name: _auto_graph(torch, np, name, g, dev, card) for name, g in graphs.items()}
+    unreachable = _unreachable_auto(torch, np, graphs["gnp_2e5"], dev, card)
+    prefetch = _prefetch_fused(torch, np, graphs["gnp_2e5"], dev, card)
+    t1 = time.perf_counter()
+    driver = driver_phase(np, card)
+    launches = (sum(a["launches_fused"] for a in auto.values())
+                + sum(unreachable["launches"]) + prefetch["launches"])
+    print(f"[autotune] phase 8 took {time.perf_counter() - t0:.1f} s ((a)+(b) "
+          f"{t1 - t0:.1f} s, the driver {time.perf_counter() - t1:.1f} s); "
+          f"fused_ppr_iteration launches {launches}")
+    return dict(auto=auto, unreachable=unreachable, prefetch=prefetch,
+                driver={m: {k: v for k, v in r.items() if k != "stdout"}
+                        for m, r in driver.items()},
+                driver_stdout={m: r["stdout"] for m, r in driver.items()},
+                launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the SpMV path
 # ---------------------------------------------------------------------------
 def spmv_path_phase(torch, np, g, dev):
@@ -1502,6 +2055,13 @@ def main() -> int:
     if deltas["launches"] == 0:
         _fail("the delta phase's served waves launched fused_ppr_iteration no time")
     print(f"[delta] phase took {time.perf_counter() - t0:.1f} s")
+    autotune = autotune_phase(torch, np, graphs, dev, card)
+    if autotune["launches"] == 0:
+        _fail("phase 8's served waves launched fused_ppr_iteration no time")
+    for r in rows:      # phase 8 held the float kernel at the shadow's shapes too
+        if r["kernel"] == "fused_ppr_iteration" and r["domain"] == "f32":
+            shapes = autotune["auto"][r["graph"]]["shadow_shapes"]["max_abs_err"]
+            r["max_abs_err"] = max(r["max_abs_err"], *shapes.values())
     spmv_counts = spmv_path_phase(torch, np, graphs["gnp_2e5"], dev)
     lm_rows, tensor_cores = lm_kernel_phase(torch, dev)
     lm = lm_serving_phase(torch, np, dev)
@@ -1539,8 +2099,9 @@ def main() -> int:
     launches = dict(service["launches"], coo_spmv=spmv_counts["coo_spmv"])
     launches_by_path = {"fused_ppr_iteration": {
         "phase 3": service["launches"]["fused_ppr_iteration"],
-        "phase 4b": deltas["launches"]}}
-    launches["fused_ppr_iteration"] += deltas["launches"]
+        "phase 4b": deltas["launches"],
+        "phase 8": autotune["launches"]}}
+    launches["fused_ppr_iteration"] += deltas["launches"] + autotune["launches"]
     sources = {"coo_spmv": ("src/repro_torch/csrc/coo_spmv.cu",
                             "src/repro/kernels/coo_spmv.py:125"),
                "fused_ppr_iteration": ("src/repro_torch/csrc/fused_ppr.cu",
@@ -1549,9 +2110,12 @@ def main() -> int:
                                            "src/repro/kernels/fused_ppr.py:365")}
     launches_source = {
         "coo_spmv": "phase 5: core.spmv.spmv_kernel",
-        "fused_ppr_iteration": "phase 3: PPRService served path, and phase 4b: "
+        "fused_ppr_iteration": "phase 3: PPRService served path, phase 4b: "
                                "the waves served after each delta on the refreshed "
-                               "streams (gnp_2e5) and warm start (pl_2e5)",
+                               "streams (gnp_2e5) and warm start (pl_2e5), and "
+                               "phase 8: precision='auto' waves with their float32 "
+                               "shadow references (gnp_2e5, pl_2e5), the "
+                               "unreachable-target waves and the prefetch polls",
         "fused_ppr_dangling_mass": "phase 3: PPRService served path, where the "
                                    "dangling fold runs inside fused_ppr_iteration's "
                                    "kernel A and this standalone launch is not made"}
@@ -1591,7 +2155,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, streams=streams, kernel_rows=rows, service=service,
-        early_exit=early, deltas=deltas,
+        early_exit=early, deltas=deltas, autotune=autotune,
         lm_kernel_rows=lm_rows, tensor_cores=tensor_cores, lm_serving=lm,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,9 @@ into bit-identical arrays.
 The paper streams the graph as three equal arrays (x=dst, y=src, val) in packets of
 B edges.  The matrix is additionally 2-D blocked by (dst_tile, src_tile): the
 reference's TPU kernel keeps one P_t source slice and one accumulator slice in
-VMEM, and the port's CUDA kernel keeps the dst accumulator tile in shared memory
-(see ``repro_torch.kernels.coo_spmv``).
+VMEM.  The port's CUDA kernels do not walk these blocks: both read the pad-free
+dst stream built from them (CSR over dst rows, cut into equal slices of edges;
+see ``repro_torch.kernels.dst_stream``).
 
 Padding discipline: sentinel edges have val=0 and x=y=0 inside their block, so they
 contribute nothing while keeping every block a whole number of packets.

@@ -1,7 +1,9 @@
 """PPR recommendation serving (counterpart of ``repro.ppr_serving``).
 
 ``PPRService`` admits queries into κ-batched waves on a registered graph and
-serves ranked, self-excluding top-K ``Recommendation``s through futures.  A
+serves ranked, self-excluding top-K ``Recommendation``s through futures;
+``precision="auto"`` resolves through the adaptive-precision controller and
+``prefetch=`` warms the result cache on idle polls.  A
 graph registers onto an engine family: "single" (plain PyTorch) or "fused"
 (the hand-written fused-iteration CUDA kernel; its plain version on the CPU).
 Everything runs on the service's ``device`` ("cuda" unless the caller asks
@@ -25,6 +27,7 @@ from repro_torch.ppr_serving.engine import (
 )
 from repro_torch.ppr_serving.futures import PPRFuture, QueryRejected
 from repro_torch.ppr_serving.graphs import RegisteredGraph
+from repro_torch.ppr_serving.prefetch import PrefetchConfig, Prefetcher
 from repro_torch.ppr_serving.scheduler import Wave, WaveScheduler
 from repro_torch.ppr_serving.service import (
     AUTO_KEY,
@@ -49,5 +52,6 @@ __all__ = [
     "SINGLE_DEVICE_KEY",
     "WaveScheduler", "Wave",
     "LRUCache", "ServiceTelemetry",
+    "PrefetchConfig", "Prefetcher",
     "topk_dense", "topk_streaming",
 ]

@@ -5,24 +5,34 @@ registered once onto an engine family (host arrays moved to the service's
 device, edge stream padded to packets, per-format quantized values cached),
 then queries flow through
 
-    submit → precision resolution → result cache probe
+    submit → precision resolution ("auto" → controller) → result cache probe
            → PPRFuture (resolved immediately on a hit; else queued)
            → κ-batch scheduler → wave launch → engine plan (step + iterate +
-             early-exit + top-K) → futures resolve → cache fill
+             early-exit + top-K) → cache fill → shadow quality feedback
+           → futures resolve
 
 A wave shares one edge stream over up to κ personalization columns (the
 paper's κ-batching).  Results are ranked ``Recommendation``s — the query
 vertex itself is always excluded from its own top-k.
+
+``precision="auto"`` queries are resolved to a concrete format *before wave
+admission* by the adaptive-precision controller
+(``repro_torch.autotune.controller``), so auto traffic batches into the same
+waves as explicit same-format traffic.  After a fixed-precision wave, a
+sampled fraction of its auto queries is shadow-scored against a float32
+reference run of the graph's own float engine over only the sampled columns
+(on the "fused" family, the fused-iteration kernel), keeping the
+controller's quality estimates current (paper Figs. 4-6 measured online).
+``prefetch`` arms the idle-poll cache warmer
+(``repro_torch.ppr_serving.prefetch``).
 
 ``apply_delta`` absorbs an edge delta into a live graph (epoch bump, scoped
 invalidation, the armed engines' device refresh), and ``warm_start`` seeds
 waves from each vertex's last converged column (``repro_torch.graph_updates``).
 
 Not in this slice, each raising ``NotImplementedError`` that names the slice
-that brings it: ``precision="auto"`` and its controller, and ``prefetch``
-(the autotune slice), ``tracing``, ``slo`` and ``otlp`` (the observability
-slice), ``mesh`` (the multi-GPU slice), and the deprecated
-``serve``/``pump``/``drain``.
+that brings it: ``tracing``, ``slo`` and ``otlp`` (the observability slice),
+``mesh`` (the multi-GPU slice), and the deprecated ``serve``/``pump``/``drain``.
 """
 from __future__ import annotations
 
@@ -34,8 +44,10 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.autotune.controller import AutotuneConfig, PrecisionController
 from repro_torch.autotune.convergence import ConvergencePolicy
 from repro_torch.core.fixed_point import PAPER_FORMATS, QFormat, format_for_bits
+from repro_torch.core.metrics import ranking
 from repro_torch.device import resolve_device
 from repro_torch.graph_updates.delta import EdgeDelta
 from repro_torch.graph_updates.warmstart import WarmStartStore
@@ -44,22 +56,15 @@ from repro_torch.ppr_serving.cache import LRUCache
 from repro_torch.ppr_serving.engine import engine_families, engine_for, family_members
 from repro_torch.ppr_serving.futures import PPRFuture, QueryRejected
 from repro_torch.ppr_serving.graphs import RegisteredGraph
+from repro_torch.ppr_serving.prefetch import PrefetchConfig, Prefetcher
 from repro_torch.ppr_serving.scheduler import Wave, WaveScheduler
+from repro_torch.ppr_serving.slices import MESH_SLICE, OBS_SLICE, not_ported
 from repro_torch.ppr_serving.telemetry import ServiceTelemetry
 
 Precision = Union[None, int, str, QFormat]
 
 FLOAT_KEY = "f32"
 AUTO_KEY = "auto"
-
-_AUTOTUNE_SLICE = "the autotune slice (precision='auto', prefetch)"
-_OBS_SLICE = "the observability slice (tracing, SLO, OTLP)"
-_MESH_SLICE = "the multi-GPU slice"
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"{slice_name}")
 
 
 def normalize_precision(precision: Precision) -> Optional[QFormat]:
@@ -96,7 +101,11 @@ class PPRQuery:
 
     ``deadline`` bounds how long the query may wait in the admission queue for
     its wave to fill (seconds); it does not bound the iteration time itself.
-    ``quality_target`` and ``prefetch`` belong to the autotune slice.
+
+    ``precision="auto"`` asks the service's precision controller for the
+    cheapest Q format currently meeting ``quality_target`` (NDCG against the
+    float32 reference; the controller's default target when None).
+    ``quality_target`` is ignored for explicit precisions.
     """
     graph: str
     vertex: int
@@ -104,6 +113,9 @@ class PPRQuery:
     precision: Precision = None
     deadline: Optional[float] = None
     quality_target: Optional[float] = None
+    # synthetic cache-warming query issued by the prefetcher: computed and
+    # cached like real traffic, but never counted in the query-latency
+    # telemetry
     prefetch: bool = False
 
 
@@ -120,15 +132,19 @@ class Recommendation:
 
 class PPRService:
     """Facade: named graphs on engine backends, κ-batched admission,
-    futures-based results, an LRU result cache, early-exit iterations, live
-    edge deltas and warm start, on one device (``device="cuda"`` unless the
-    caller asks for the CPU).
+    futures-based results, an LRU result cache, adaptive precision
+    (``precision="auto"``), early-exit iterations, live edge deltas, warm
+    start and the idle-poll prefetcher, on one device (``device="cuda"``
+    unless the caller asks for the CPU).
 
+    ``autotune`` configures the precision controller (an ``AutotuneConfig``;
+    the controller is always built, with the defaults when None).
     ``warm_start`` seeds wave iterations from each personalization vertex's
     last converged column (True, or an int store capacity per graph) — pair
     it with ``early_exit`` so the shorter convergence distance actually
     saves iterations.  The columns live on the host: a warm wave copies its
-    final state to the host once."""
+    final state to the host once.  ``prefetch`` arms the idle-poll cache
+    warmer (True, or a ``PrefetchConfig``)."""
 
     def __init__(
         self,
@@ -138,10 +154,10 @@ class PPRService:
         max_wait: float = 0.0,
         cache_capacity: int = 4096,
         topk_tile: Optional[int] = None,
-        autotune=None,
+        autotune: Optional[AutotuneConfig] = None,
         early_exit: Union[None, bool, ConvergencePolicy] = None,
         warm_start: Union[bool, int] = False,
-        prefetch=None,
+        prefetch: Union[None, bool, PrefetchConfig] = None,
         tracing: Union[bool, float] = False,
         reservoir_size: int = 1024,
         time_fn=time.monotonic,
@@ -150,13 +166,11 @@ class PPRService:
         device="cuda",
     ):
         for name, value, slice_name in (
-                ("autotune", autotune, _AUTOTUNE_SLICE),
-                ("prefetch", prefetch, _AUTOTUNE_SLICE),
-                ("tracing", tracing, _OBS_SLICE),
-                ("slo", slo, _OBS_SLICE),
-                ("otlp", otlp, _OBS_SLICE)):
+                ("tracing", tracing, OBS_SLICE),
+                ("slo", slo, OBS_SLICE),
+                ("otlp", otlp, OBS_SLICE)):
             if value is not None and value is not False:
-                raise _later(f"PPRService({name}=...)", slice_name)
+                raise not_ported(f"PPRService({name}=...)", slice_name)
         self.device = resolve_device(device)
         self.kappa = kappa
         self.iterations = iterations
@@ -167,6 +181,7 @@ class PPRService:
         self.cache = LRUCache(cache_capacity)
         self.telemetry = ServiceTelemetry(reservoir_size=reservoir_size)
         self.recorder = FlightRecorder()
+        self.controller = PrecisionController(autotune or AutotuneConfig())
         if early_exit is True:
             self.convergence: Optional[ConvergencePolicy] = ConvergencePolicy()
         else:
@@ -177,10 +192,16 @@ class PPRService:
             self._warm = WarmStartStore(capacity_per_graph=int(warm_start))
         else:
             self._warm = None
+        if prefetch is True:
+            self.prefetcher: Optional[Prefetcher] = Prefetcher(time_fn=time_fn)
+        elif prefetch:
+            self.prefetcher = Prefetcher(prefetch, time_fn=time_fn)
+        else:
+            self.prefetcher = None
         self._graphs: Dict[str, RegisteredGraph] = {}
         self._wave_counter = 0
-        # Guards the quick mutation sections (scheduler, cache, deltas, wave
-        # bookkeeping); engine compute runs outside it.  RLock:
+        # Guards the quick mutation sections (scheduler, cache, controller,
+        # deltas, wave bookkeeping); engine compute runs outside it.  RLock:
         # PPRFuture.result() re-enters through _drive on the same thread.
         self._lock = threading.RLock()
         # last cold (unseeded) iteration count per (graph, precision): the
@@ -197,10 +218,11 @@ class PPRService:
         ``engine`` names the backend family serving the graph's waves:
         "single" (plain PyTorch over the full edge stream, the default) or
         "fused" (the fused-iteration kernel).  Re-registering an existing name
-        invalidates that graph's cached results and rejects its still-pending
-        futures — nothing computed on the old topology may be served."""
+        invalidates that graph's cached results, rejects its still-pending
+        futures and resets its quality estimates — nothing from the old
+        topology may be served or steer the precision ladder."""
         if mesh is not None or mesh_axis is not None:
-            raise _later("register_graph(mesh=...)", _MESH_SLICE)
+            raise not_ported("register_graph(mesh=...)", MESH_SLICE)
         with self._lock:
             return self._register_graph_locked(name, g, formats, packet, engine)
 
@@ -222,8 +244,11 @@ class PPRService:
                     f"new graph", code="graph-replaced"))
             self.recorder.record_event("graph_replaced", self.time_fn(),
                                        graph=name)
+            self.controller.forget_graph(name)
             if self._warm is not None:
                 self._warm.drop_graph(name)
+            if self.prefetcher is not None:
+                self.prefetcher.drop_graph(name)
             self.telemetry.forget_graph_demand(name)
         rg: RegisteredGraph = members[0].make_graph(
             name, g, packet=packet, device=self.device)
@@ -267,17 +292,15 @@ class PPRService:
         staleness.  Surviving pending futures move to the new epoch's wave
         keys with their admission budgets intact — they resolve against the
         new topology.  Frontier futures are *rejected* with a descriptive
-        ``QueryRejected`` (never left forever-pending).  The host merge is
-        followed by each armed engine's device refresh (incremental
-        requantization upload; on the fused family the dirty blocks
-        re-packetized and a new dst stream uploaded), so the delta pays its
-        device cost here.  A wave planned before the delta finishes on the
-        tensors its plan bound and caches under its own epoch.
-
-        The reference also decays the autotune controller's quality windows
-        and tells the prefetcher which hot entries were dropped; both
-        objects come with the autotune slice, so there is nothing to call
-        here yet.
+        ``QueryRejected`` (never left forever-pending).  Autotune quality
+        windows decay (soft evidence) rather than reset, and the hot
+        vertices whose cache entries were dropped join the prefetcher's
+        re-warm queue.  The host merge is followed by each armed engine's
+        device refresh (incremental requantization upload; on the fused
+        family the dirty blocks re-packetized and a new dst stream
+        uploaded), so the delta pays its device cost here.  A wave planned
+        before the delta finishes on the tensors its plan bound and caches
+        under its own epoch.
 
         Returns a report dict (also folded into telemetry): epoch, edge
         counts, scoped-invalidation accounting, apply latency."""
@@ -297,10 +320,13 @@ class PPRService:
             eng.on_delta(rg, info)
         epoch = rg.epoch
 
+        dropped_vertices: List[int] = []
+
         def retag(key):
             if key[0] != name:
                 return key
             if int(key[2]) in fr:
+                dropped_vertices.append(int(key[2]))
                 return None
             return (key[0], epoch) + tuple(key[2:])
 
@@ -324,6 +350,12 @@ class PPRService:
                 pending_requeued += 1
         if self._warm is not None:
             self._warm.grow(name, rg.num_vertices)
+        self.controller.decay_graph(name)
+        if self.prefetcher is not None:
+            counts = self.telemetry.query_vertex_counts.get(name, {})
+            hot = [v for v in dropped_vertices
+                   if counts.get(v, 0) >= self.prefetcher.config.min_count]
+            self.prefetcher.note_invalidated(name, hot)
         self.telemetry.record_delta(delta.num_added, delta.num_removed,
                                     cache_dropped, cache_retained,
                                     pending_dropped)
@@ -353,10 +385,45 @@ class PPRService:
         """Seconds the longest-waiting pending query has been queued."""
         return self.scheduler.oldest_wait_s(now)
 
+    def degrade_quality(self, target: float) -> None:
+        """Impose the SLO-degradation ceiling: until ``restore_quality``,
+        every ``precision="auto"`` query resolves against
+        ``min(its target, target)`` — serving 0.93 instead of 0.95 when the
+        admission queue is deep buys wave latency at a measured, recorded
+        quality cost (each capped resolution counts in telemetry)."""
+        with self._lock:
+            if self.controller.target_ceiling == float(target):
+                return
+            self.controller.set_target_ceiling(target)
+            self.telemetry.record_slo_transition(degraded=True)
+            self.recorder.record_event("slo_degrade", self.time_fn(),
+                                       target=float(target))
+
+    def restore_quality(self) -> None:
+        """Lift the degradation ceiling (queue drained) — auto traffic
+        resumes its requested quality targets."""
+        with self._lock:
+            if self.controller.target_ceiling is None:
+                return
+            self.controller.set_target_ceiling(None)
+            self.telemetry.record_slo_transition(degraded=False)
+            self.recorder.record_event("slo_recover", self.time_fn())
+
     # ------------------------------------------------------------------
     def _resolve_precision(self, q: PPRQuery) -> str:
+        """Concrete precision key for a query; "auto" goes through the ladder."""
         if q.precision == AUTO_KEY:
-            raise _later('precision="auto"', _AUTOTUNE_SLICE)
+            ceiling = self.controller.target_ceiling
+            if ceiling is not None:
+                requested = (self.controller.config.default_target
+                             if q.quality_target is None
+                             else float(q.quality_target))
+                if ceiling < requested:
+                    self.telemetry.record_degraded_query(graph=q.graph)
+            fmt = self.controller.resolve(q.graph, q.quality_target)
+            pkey = FLOAT_KEY if fmt is None else fmt.name
+            self.telemetry.record_auto_resolution(pkey)
+            return pkey
         return precision_key(q.precision)
 
     def _cache_key(self, q: PPRQuery, pkey: str,
@@ -384,8 +451,6 @@ class PPRService:
         the future for the next wave on its (graph, precision, mesh, epoch)
         stream.  Validation happens here and raises synchronously: one bad
         query must never poison a wave."""
-        if q.prefetch:
-            raise _later("PPRQuery(prefetch=True)", _AUTOTUNE_SLICE)
         if q.graph not in self._graphs:
             raise KeyError(f"graph {q.graph!r} is not registered "
                            f"(have {list(self._graphs)})")
@@ -409,7 +474,8 @@ class PPRService:
             self.telemetry.record_cache(hit is not None)
             if hit is not None:
                 verts, scores = hit
-                self.telemetry.record_query_latency(q.graph, 0.0)
+                if not q.prefetch:
+                    self.telemetry.record_query_latency(q.graph, 0.0)
                 fut._resolve(Recommendation(q, verts.copy(), scores.copy(),
                                             source="cache", precision=pkey))
                 return fut
@@ -423,12 +489,13 @@ class PPRService:
 
     def poll(self, now: Optional[float] = None) -> int:
         """Launch every wave the admission policy considers ready; returns the
-        number of waves launched."""
-        with self._lock:
-            popped = self.scheduler.ready_waves(now=now)
-        for wave in popped:
-            self._run_wave(wave)
-        return len(popped)
+        number of waves launched.
+
+        An *idle* poll (nothing launchable) with a prefetcher armed instead
+        issues synthetic queries for predicted-hot uncached vertices and
+        launches them immediately; their results fill the cache but resolve
+        no caller-visible futures."""
+        return self._launch_ready(now, allow_prefetch=True)
 
     def run_batch(self, queries: Sequence[PPRQuery]) -> List[Recommendation]:
         """Submit every query first (so full κ-waves form), flush, and gather
@@ -449,7 +516,7 @@ class PPRService:
     def _drive(self, fut: PPRFuture) -> None:
         """Resolve one pending future synchronously: launch the ready waves,
         then flush the future's own wave if it is still queued."""
-        self.poll()
+        self._launch_ready(None, allow_prefetch=False)
         if fut.done():
             return
         key = fut._wave_key
@@ -458,6 +525,74 @@ class PPRService:
                 popped = self.scheduler.flush_keys({key})
             for wave in popped:
                 self._run_wave(wave)
+
+    def _launch_ready(self, now: Optional[float], allow_prefetch: bool) -> int:
+        with self._lock:
+            popped = self.scheduler.ready_waves(now=now)
+        for wave in popped:
+            self._run_wave(wave)
+        waves = len(popped)
+        if not waves and allow_prefetch and self.prefetcher is not None:
+            # "idle" must mean idle: a deep queue with nothing launchable yet
+            # (partial waves still inside their admission budgets) is live
+            # traffic between waves, and synthetic warm-up compute would add
+            # latency right where it hurts
+            cfg = self.prefetcher.config
+            suppress_at = (cfg.suppress_depth if cfg.suppress_depth is not None
+                           else self.kappa)
+            if self.scheduler.queue_depth() >= suppress_at:
+                self.prefetcher.suppressed += 1
+                self.telemetry.record_prefetch_suppressed()
+            else:
+                waves += self._prefetch_pump(now)
+        return waves
+
+    def _prefetch_pump(self, now: Optional[float]) -> int:
+        """Issue + immediately launch synthetic queries for hot uncached
+        vertices, under the cache key real traffic probes: each vertex's last
+        real (k, resolved precision) when known — auto traffic records its
+        post-resolution format, so that matches what the controller would
+        resolve next — else the config's k at the controller's current rung.
+        Returns the number of waves launched."""
+        with self._lock:
+            cfg = self.prefetcher.config
+            now_s = self.time_fn() if now is None else now
+            keys = set()
+            issued = 0
+            for name, rg in self._graphs.items():
+                if issued >= cfg.max_per_pump:
+                    break
+                counts = self.telemetry.query_vertex_counts.get(name, {})
+                last = self.telemetry.query_vertex_last.get(name, {})
+                self.prefetcher.decay_demand(name, counts, now=now_s,
+                                             last_seen=last)
+                for v in self.prefetcher.candidates(name, counts,
+                                                    cfg.max_per_pump - issued):
+                    if not 0 <= v < rg.num_vertices:
+                        continue              # stale demand from a dead topology
+                    k_v, pkey = last.get(v, (cfg.k, None))
+                    if pkey is None:
+                        fmt = self.controller.resolve(name)
+                        pkey = FLOAT_KEY if fmt is None else fmt.name
+                    q = PPRQuery(name, int(v),
+                                 k=min(k_v, rg.num_vertices - 1),
+                                 precision=pkey, prefetch=True)
+                    if self._cache_key(q, pkey) in self.cache:
+                        continue              # membership probe: counter-free
+                    key = (name, pkey, rg.mesh_key, rg.epoch)
+                    fut = PPRFuture(q, self)
+                    fut._wave_key = key
+                    self.scheduler.submit(key, fut, now=now)
+                    keys.add(key)
+                    issued += 1
+            if not issued:
+                return 0
+            self.prefetcher.issued += issued
+            self.telemetry.record_prefetch(issued)
+            popped = self.scheduler.flush_keys(keys)
+        for wave in popped:
+            self._run_wave(wave)
+        return len(popped)
 
     def serve(self, queries: Sequence[PPRQuery]) -> List[Recommendation]:
         raise NotImplementedError("PPRService.serve() is deprecated in the "
@@ -473,11 +608,18 @@ class PPRService:
 
     def telemetry_summary(self) -> Dict[str, float]:
         """Telemetry counters (cache_* = submit-path view) plus the LRU's own
-        stats under lru_* and, with warm start, the store's under warm_*."""
+        stats under lru_* — the two diverge once anything touches the cache
+        outside submit() (e.g. the prefetcher) — the precision controller's
+        ladder counters under autotune_*, and the warm-start store's and the
+        prefetcher's under warm_* and prefetch_* when armed."""
         s = self.telemetry.summary()
         s.update({f"lru_{k}": v for k, v in self.cache.stats().items()})
+        s.update({f"autotune_{k}": v for k, v in self.controller.summary().items()})
         if self._warm is not None:
             s.update({f"warm_{k}": v for k, v in self._warm.stats().items()})
+        if self.prefetcher is not None:
+            s.update({f"prefetch_{k}": v
+                      for k, v in self.prefetcher.stats().items()})
         return s
 
     # ------------------------------------------------------------------
@@ -609,16 +751,92 @@ class PPRService:
                                            precision=pkey))
             t_resolve = self.time_fn()
             self.telemetry.record_stage("resolve", t_resolve - t_topk)
+            # per-occupant end-to-end latency (submit → resolution); synthetic
+            # prefetch queries are cache warming, not traffic
             for col, fut in enumerate(wave.items):
-                enq = (wave.enqueued_at[col]
-                       if col < len(wave.enqueued_at) else t0)
-                self.telemetry.record_query_latency(
-                    graph_name, max(0.0, t_resolve - enq))
+                if not fut.query.prefetch:
+                    enq = (wave.enqueued_at[col]
+                           if col < len(wave.enqueued_at) else t0)
+                    self.telemetry.record_query_latency(
+                        graph_name, max(0.0, t_resolve - enq))
             self.telemetry.record_wave(len(wave.items), self.kappa, latency,
                                        pkey, mesh_key=mesh_key,
                                        engine=plan.engine, graph=graph_name)
+        self._shadow_feedback(wave, rg, fmt, pkey, P)
         # resolve futures last: a waiter must observe the wave's completed
-        # accounting
+        # accounting, shadow feedback included
         for col, fut in enumerate(wave.items):
             fut._resolve(recs[col])
         return recs
+
+    # ------------------------------------------------------------------
+    def _shadow_feedback(self, wave: Wave, rg: RegisteredGraph,
+                         fmt: Optional[QFormat], pkey: str,
+                         P: torch.Tensor) -> None:
+        """Quality feedback for the wave's auto queries (sampled).
+
+        Every auto query consumes exactly one sampling draw (in wave order),
+        so a replayed query sequence under a seeded estimator makes identical
+        shadow decisions regardless of how the ladder moved in between.
+        Float32-served auto queries are perfect by definition: their sampled
+        observations feed the ladder and telemetry as 1.0 without running a
+        reference.
+
+        The float32 reference runs through the graph's own float engine (on
+        the "fused" family, the fused-iteration kernel) over only the
+        sampled columns, for the full iteration budget with no early exit,
+        so shadow cost scales with ``sample_fraction``.  Only the sampled
+        columns of the served state and the reference are copied to the
+        host, once a wave."""
+        estimator = self.controller.estimator
+        sampled = [(col, fut.query) for col, fut in enumerate(wave.items)
+                   if fut.query.precision == AUTO_KEY
+                   and estimator.should_sample()]
+        if not sampled:
+            return
+        if fmt is None:
+            with self._lock:   # controller state is shared with submit-time resolution
+                for _, q in sampled:
+                    self.controller.observe_quality(rg.name, FLOAT_KEY, 1.0,
+                                                    target=q.quality_target)
+                    self.telemetry.record_shadow(1.0)
+            return
+        pers_sub = torch.as_tensor(
+            np.asarray([int(q.vertex) for _, q in sampled], np.int32),
+            device=rg.device)
+        try:
+            float_engine = engine_for(rg.engine_family, False)
+        except KeyError:
+            return      # fixed-only family: no float datapath for a reference
+        P_ref = self._float_reference(rg, float_engine, pers_sub)
+        ref, approx = self._sampled_to_host(P_ref, P, [col for col, _ in sampled], fmt)
+        with self._lock:   # the reference compute above ran unlocked
+            for j, (_, q) in enumerate(sampled):
+                ref_col = ref[:, j]
+                score = self.controller.observe_shadow(
+                    rg.name, pkey, approx[:, j], ref_col,
+                    target=q.quality_target, ref_order=ranking(ref_col))
+                self.telemetry.record_shadow(score)
+
+    def _float_reference(self, rg: RegisteredGraph, float_engine,
+                         pers: torch.Tensor) -> torch.Tensor:
+        """The shadow reference: float32 PPR of ``pers`` through
+        ``float_engine``, the full iteration budget with no early exit."""
+        rg.arm(float_engine)
+        plan = float_engine.plan(rg, None, alpha=self.alpha,
+                                 iterations=self.iterations)
+        V = plan.initial(pers)
+        P = V
+        for _ in range(self.iterations):
+            P = plan.step(V, P)
+        return P
+
+    @staticmethod
+    def _sampled_to_host(P_ref: torch.Tensor, P: torch.Tensor, cols: List[int],
+                         fmt: QFormat) -> Tuple[np.ndarray, np.ndarray]:
+        """float64 host copies of the reference and of the served state's
+        sampled ``cols``, the latter in value units."""
+        ref = P_ref.cpu().numpy().astype(np.float64)
+        # raw Qm.f bits: the int32 tensor holds the reference's uint32 values
+        approx = P[:, cols].cpu().numpy().view(np.uint32).astype(np.float64) / fmt.scale
+        return ref, approx

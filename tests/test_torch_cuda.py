@@ -297,6 +297,69 @@ def test_cuda_deltas_release_the_old_stream(cuda):
     assert torch.cuda.memory_allocated(cuda) <= base + stream_bytes
 
 
+
+# ---------------------------------------------------------------------------
+# adaptive precision: the shadow reference's shape and an auto wave
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("cols", [1, 3, 16])
+def test_cuda_fused_float_plan_on_shadow_shapes_matches_plain(cuda, cols):
+    """The shadow reference runs the fused float plan over only the sampled
+    columns (1 ≤ K ≤ κ) for the full budget: on the card it equals the same
+    plan on the CPU (the plain versions) within 1e-6, every step a kernel
+    launch."""
+    g = _prime_graph(seed=11)
+    pers = np.random.default_rng(cols).choice(g.num_vertices, cols, replace=False)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        rg = FusedRegisteredGraph("g", g, device=dev, packet=64, v_tile=128)
+        plan = get_engine("fused_float").plan(rg, None, alpha=ALPHA, iterations=10)
+        vmat = plan.initial(torch.as_tensor(pers.astype(np.int32), device=dev))
+        before = tfused.fused_ppr_iteration.launches
+        p = vmat
+        for _ in range(10):
+            p = plan.step(vmat, p)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert tfused.fused_ppr_iteration.launches == before + 10
+        out[dev.type] = p.cpu()
+    assert out["cuda"].shape == (g.num_vertices, cols)
+    assert float((out["cuda"] - out["cpu"]).abs().max()) < 1e-6
+
+
+def test_cuda_auto_wave_fused_equals_single(cuda):
+    """An auto wave on the fused family resolves the same precisions, serves
+    bit-equal answers and scores the same shadow samples as the single
+    family, and its shadow reference launches the kernel."""
+    from repro_torch.autotune import AutotuneConfig, ShadowConfig
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+
+    g = erdos_renyi(3000, 30000, seed=2)
+    verts = np.random.default_rng(5).choice(g.num_vertices, 48, replace=False)
+    out = {}
+    for engine in ("fused", "single"):
+        cfg = AutotuneConfig(ladder=(12, 16, 20), promote_patience=1,
+                             shadow=ShadowConfig(sample_fraction=0.5, min_samples=1,
+                                                 window=4, seed=1))
+        svc = PPRService(kappa=16, iterations=10, autotune=cfg, device=cuda)
+        svc.register_graph("g", g, engine=engine)
+        before = tfused.fused_ppr_iteration.launches
+        recs = svc.run_batch([PPRQuery("g", int(v), precision="auto") for v in verts])
+        torch.cuda.synchronize()
+        out[engine] = (recs, svc, tfused.fused_ppr_iteration.launches - before)
+    (rf, sf, lf), (rs, ss, ls) = out["fused"], out["single"]
+    assert [r.precision for r in rf] == [r.precision for r in rs]
+    for a, b in zip(rf, rs):
+        assert np.array_equal(a.vertices, b.vertices)
+        assert np.array_equal(a.scores, b.scores)
+    assert sf.controller.summary() == ss.controller.summary()
+    assert len(sf.telemetry.shadow_scores) == len(ss.telemetry.shadow_scores) > 0
+    assert np.abs(np.asarray(sf.telemetry.shadow_scores)
+                  - np.asarray(ss.telemetry.shadow_scores)).max() < 1e-4
+    # three waves of 10 iterations, plus one shadow reference of 10 per wave
+    # that sampled a fixed-point query
+    assert ls == 0 and lf >= 30 + 10 and lf % 10 == 0
+
+
 # flash attention: float32 to 1e-4 (the kernel and the plain version sum in
 # other orders, both in float32); bfloat16 to one bf16 ulp, rtol 2^-7 with
 # atol 1e-3 near 0 (both compute in float32 from the same bf16 inputs and

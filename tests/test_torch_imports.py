@@ -17,9 +17,7 @@ def _forbidden(name: str) -> bool:
     return any(name == top or name.startswith(top + ".") for top in FORBIDDEN)
 
 
-@pytest.mark.parametrize("path", PORT_MODULES,
-                         ids=[str(p.relative_to(SRC)) for p in PORT_MODULES])
-def test_port_module_imports_no_jax_and_no_reference(path):
+def _forbidden_imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = []
     for node in ast.walk(tree):
@@ -28,14 +26,27 @@ def test_port_module_imports_no_jax_and_no_reference(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             if node.module and _forbidden(node.module):
                 bad.append(node.module)
+    return bad
+
+
+@pytest.mark.parametrize("path", PORT_MODULES,
+                         ids=[str(p.relative_to(SRC)) for p in PORT_MODULES])
+def test_port_module_imports_no_jax_and_no_reference(path):
+    bad = _forbidden_imports(path)
     assert not bad, f"{path.relative_to(SRC)} imports {bad}"
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    bad = _forbidden_imports(SRC.parent / "chip_smoke.py")
+    assert not bad, f"chip_smoke.py imports {bad}"
 
 
 def test_importing_the_port_loads_no_jax():
     mods = ["repro_torch", "repro_torch.configs", "repro_torch.convert",
             "repro_torch.core", "repro_torch.core.quantization", "repro_torch.kernels",
             "repro_torch.models", "repro_torch.models.decode", "repro_torch.serving",
-            "repro_torch.launch.serve", "repro_torch.ppr_serving"]
+            "repro_torch.launch.serve", "repro_torch.launch.ppr_run",
+            "repro_torch.ppr_serving", "repro_torch.autotune"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m == 'repro' or m.startswith('repro.'))\n"

@@ -270,8 +270,7 @@ def test_service_on_cuda_raises_without_a_gpu():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(tracing=True), dict(prefetch=True),
-    dict(slo=True), dict(otlp=object()), dict(autotune=object()),
+    dict(tracing=True), dict(slo=True), dict(otlp=object()),
 ], ids=lambda kw: next(iter(kw)))
 def test_later_slice_options_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -282,8 +281,7 @@ def test_later_slice_calls_raise_not_implemented():
     g = _port(_graph(v=60, e=200))
     svc = TService(device=CPU)
     svc.register_graph("g", g)
-    for call in (lambda: svc.submit(TQuery("g", 1, precision="auto")),
-                 lambda: svc.register_graph("m", g, mesh=object()),
+    for call in (lambda: svc.register_graph("m", g, mesh=object()),
                  lambda: svc.serve([]), lambda: svc.pump(), lambda: svc.drain()):
         with pytest.raises(NotImplementedError):
             call()
