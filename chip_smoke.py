@@ -81,7 +81,27 @@ exits non-zero.  It prints, in order:
    ``--replay-deltas`` modes on the card and the default on the CPU, each
    a subprocess that exits 0, with equal accuracy blocks and each mode's
    req/s;
-9. a ``{"kernels": [...]}`` JSON line, then the card line, then the
+9. tracing, SLO, OTLP and the HTTP tier, after phase 8: (c) first,
+   ``fused_ppr_iteration`` at K = 32 and 64 (the κ the admission controller
+   deepens to) on both graphs against its plain version (Q1.25 raw bits;
+   float32 at phase 2's limits to the plain version in float64), timed;
+   (a) phase 3's traffic through three fused services on gnp_2e5
+   (untraced, ``tracing=True``, ``tracing=0.1``), without and with
+   ``early_exit``: equal answers and iteration counts, five spans and the
+   iterate attributes on every kept wave trace, the seeded sampled share,
+   and each service's wave p50 and span p50s; (b) ``PPRHTTPServer`` on
+   127.0.0.1 over a fused service (κ = 16, ``early_exit``, ``tracing=0.1``,
+   ``slo=True``, an ``OTLPExporter`` to an in-process collector): 512 POSTs
+   at concurrency 64 (Q1.25, f32, auto), then two bursts under a tight
+   admission config with the pump held back (κ → 32, then κ → 64 and 111
+   shed); every 200 equals ``run_batch`` on an untraced fused service at
+   the precision it names, no 500, the endpoints answer 200, the waves run
+   on the pump's worker thread on the main thread's stream, and the
+   collector holds exactly the exporter's spans; requests/s, client
+   p50/p99, waves and occupancy; (d) ``ppr_run --http 0 --trace --slo
+   --otlp-endpoint`` (16 POSTs, ``/v1/slo``, SIGINT: exit 0, 0 failed
+   sends) and ``ppr_run --serve --dump-traces 3`` as subprocesses;
+10. a ``{"kernels": [...]}`` JSON line, then the card line, then the
    ``{"ok": true, ...}`` line last.
 
 Everything too long for the end of the output goes to
@@ -168,15 +188,15 @@ def _roofline(nbytes: float, flops: float, dom: str):
 # ---------------------------------------------------------------------------
 # phase 2 + 5: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def _inputs(np, g, fmt, seed):
-    """A state P [V, K] and V̄ [V, K] from a seed, in the domain of ``fmt``."""
+def _inputs(np, g, fmt, seed, k=K):
+    """A state P [V, k] and V̄ [V, k] from a seed, in the domain of ``fmt``."""
     rng = np.random.default_rng(seed)
     v = g.num_vertices
-    pers = rng.choice(v, K, replace=False)
-    p = (rng.random((v, K)) * (2.0 / v)).astype(np.float32)
-    p[pers, np.arange(K)] += 0.15
-    vm = np.zeros((v, K), np.float32)
-    vm[pers, np.arange(K)] = 1.0
+    pers = rng.choice(v, k, replace=False)
+    p = (rng.random((v, k)) * (2.0 / v)).astype(np.float32)
+    p[pers, np.arange(k)] += 0.15
+    vm = np.zeros((v, k), np.float32)
+    vm[pers, np.arange(k)] = 1.0
     if fmt is None:
         return p, vm
     raw = np.floor(p.astype(np.float64) * fmt.scale).astype(np.uint32)
@@ -1500,6 +1520,602 @@ def autotune_phase(torch, np, graphs, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: tracing, SLO, OTLP and the HTTP tier
+# ---------------------------------------------------------------------------
+DEEP_K = (32, 64)        # the κ the admission controller deepens to (kappa_max 64)
+HTTP_REQUESTS, HTTP_CONCURRENCY = 512, 64
+HTTP_TIMEOUT_S = 120.0   # a wave that fails leaves its clients waiting: fail instead
+
+
+class _Collector:
+    """An OTLP/HTTP collector on 127.0.0.1 (stdlib): counts the spans and
+    the metric payloads POSTed to it."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        import threading
+
+        self.spans = self.metric_posts = 0
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                if self.path.endswith("/v1/traces"):
+                    outer.spans += sum(len(ss["spans"]) for rs in body["resourceSpans"]
+                                       for ss in rs["scopeSpans"])
+                else:
+                    outer.metric_posts += 1
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class _KernelCalls:
+    """While armed, records each ``fused_ppr_iteration`` call the fused
+    engine makes: its K, the calling thread, the current CUDA stream and
+    the host ms of the call (no synchronize)."""
+
+    def __init__(self, torch):
+        from repro_torch.ppr_serving.engine import fused as fused_engine
+        self.torch, self.module = torch, fused_engine
+        self.inner, self.calls = fused_engine.fused_ppr_iteration, []
+
+    def __enter__(self):
+        import threading
+
+        def recorded(*a, **kw):
+            t0 = time.perf_counter()
+            out = self.inner(*a, **kw)
+            self.calls.append((int(a[4].shape[1]), threading.current_thread().name,
+                               self.torch.cuda.current_stream().cuda_stream,
+                               (time.perf_counter() - t0) * 1e3))
+            return out
+        self.module.fused_ppr_iteration = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fused_ppr_iteration = self.inner
+
+    def by_k(self):
+        out = {}
+        for k, *_ in self.calls:
+            out[k] = out.get(k, 0) + 1
+        return dict(sorted(out.items()))
+
+
+def _deep_kernel_rows(torch, np, graphs, dev):
+    """(c) ``fused_ppr_iteration`` at K = 32 and 64 on both graphs against
+    its plain version on the same operands: Q1.25 raw bits (P_next and the ∞
+    row) equal; float32 P_next at phase 2's limits to the plain version run
+    in float64 (the float32 plain version's ``index_add_`` atomics stray on
+    pl_2e5's hub rows), and the residual rows at phase 2's limits to those
+    of the kernel's own P_next; then its times beside phase 2's rows."""
+    from repro_torch.core.fixed_point import Q1_25
+    from repro_torch.kernels.fused_ppr import fused_ppr_iteration, fused_ppr_plain
+    from repro_torch.ppr_serving.engine.fused import FusedRegisteredGraph
+
+    rows = []
+    for gname, g in graphs.items():
+        frg = FusedRegisteredGraph(gname, g, packet=PACKET, v_tile=V_TILE, device=dev)
+        topo, dang = frg.fused_topology(), frg.fused_dangling()
+        st, v, n_dang = frg.fused_stream(), g.num_vertices, int(dang.shape[0])
+        for k in DEEP_K:
+            for fmt in (None, Q1_25):
+                dom = "f32" if fmt is None else fmt.name
+                what = f"fused {gname} {dom} K={k}"
+                p_np, vm_np = _inputs(np, g, fmt, seed=k + (0 if fmt is None else 7), k=k)
+                p, vm = (torch.as_tensor(a, device=dev) for a in (p_np, vm_np))
+                val = frg.fused_values(fmt)
+                fargs, fkw = (topo, val, dang, vm, p), dict(alpha=ALPHA, fmt=fmt)
+                if fmt is None:
+                    pn, res = fused_ppr_iteration(*fargs, **fkw)
+                    pn64, _ = fused_ppr_plain(topo, val.double(), dang, vm.double(),
+                                              p.double(), **fkw)
+                    err = _check_float_p_next(torch, what, pn.double(), pn64)
+                    d = (pn.double() - p.double()).abs()
+                    own = torch.stack([d.sum(0), d.amax(0), (d * d).sum(0)])
+                    for r in (0, 2):
+                        if not torch.allclose(res[r].double(), own[r], rtol=1e-4, atol=0.0):
+                            _fail(f"{what}: residual row {r} vs its own P_next's")
+                    if float((res[1].double() - own[1]).abs().max()) > 1e-6:
+                        _fail(f"{what}: inf residual vs its own P_next's")
+                else:
+                    err = _check_fused_iteration(torch, what, fargs, fmt)
+                state = v * k * 4
+                row = dict(kernel="fused_ppr_iteration", graph=gname, domain=dom, k=k,
+                           max_abs_err=err, bound_ms=_bound_ms(
+                               st.num_edges * 8 + (v + 1) * 4 + st.nz_rows.size * 4
+                               + (st.num_slices + 1) * 4 + n_dang * 4 + 3 * state
+                               + 3 * k * 4),
+                           unpadded_bound_ms=_bound_ms(
+                               g.num_edges * 8 + n_dang * 4 + 3 * state + 3 * k * 4))
+                _timings(torch, row, lambda: fused_ppr_iteration(*fargs, **fkw),
+                         lambda: fused_ppr_plain(*fargs, **fkw), plain_repeats=5)
+                rows.append(row)
+                print(f"[deep-k] {what}: kernel = plain (max abs err {err:.2e}); "
+                      f"{row['ms']:.4f} ms a call, device {row['device_ms']:.4f} ms, "
+                      f"bound {row['bound_ms']:.4f} ms "
+                      f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of device), "
+                      f"plain {row['plain_ms']:.4f} ms, {row['device_ops_per_call']} "
+                      f"device ops a call")
+        del frg
+    return rows
+
+
+def _phase3_traffic(np, g, n_fixed=64, n_float=32):
+    rng = np.random.default_rng(2020)
+    verts = rng.choice(g.num_vertices, n_fixed + n_float, replace=False)
+    return [(int(v), 26) for v in verts[:n_fixed]] + [(int(v), None) for v in verts[n_fixed:]]
+
+
+def _expected_sampled(rate, n):
+    """The head-sampling draws of ``n`` submitted queries at ``rate``:
+    the service's ``random.Random(0)``, one draw a query."""
+    import random
+    rng = random.Random(0)
+    return sum(rng.random() < rate for _ in range(n))
+
+
+def _wave_spans(traces, names=("plan", "iterate", "topk")):
+    """Median ms of each named span over the wave traces in ``traces``."""
+    waves = [tr for tr in traces if tr["kind"] == "wave"]
+    return {name: statistics.median(
+        [c["duration_s"] * 1e3 for tr in waves for c in tr["root"]["children"]
+         if c["name"] == name]) for name in names} if waves else {}
+
+
+def _traced_waves(torch, np, g, dev, card, passes=5):
+    """(a) Phase 3's traffic through three fused services on gnp_2e5,
+    untraced, ``tracing=True`` and ``tracing=0.1``, each without and then
+    with ``early_exit=True``, the services in turns within each pass:
+    equal answers and iteration counts, complete wave traces, the seeded
+    sampled share, each service's wave p50 and span p50s, and the host ms
+    of the untraced service's ``fused_ppr_iteration`` calls (the main
+    thread's, beside (b)'s on the pump's worker)."""
+    from repro_torch.autotune.convergence import ConvergencePolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+
+    queries = _phase3_traffic(np, g)
+    services = {}
+    for label, tracing in (("untraced", False), ("traced", True), ("sampled-0.1", 0.1)):
+        svc = PPRService(kappa=K, iterations=10, alpha=ALPHA, cache_capacity=0,
+                         tracing=tracing, device=dev)
+        svc.register_graph("g", g, formats=[26], engine="fused")
+        kinds = {"query": 0, "wave": 0}
+        if svc.tracer is not None:
+            inner = svc.tracer.sink
+
+            def counted(tr, inner=inner, kinds=kinds):
+                kinds[tr.kind] += 1
+                inner(tr)
+            svc.tracer.sink = counted
+        services[label] = dict(svc=svc, kinds=kinds)
+    out, launches, host_ms = {}, 0, []
+    for exit_label, policy in (("no-exit", None), ("early-exit", ConvergencePolicy())):
+        answers, n0 = {}, {}
+        for label, s in services.items():
+            svc = s["svc"]
+            svc.convergence = policy            # what early_exit= sets
+            _serve_batch(svc, PPRQuery, queries)        # warm-up pass
+            torch.cuda.synchronize()
+            svc.telemetry.reset()
+            n0[label] = svc.recorder.traces_recorded
+        reset_launch_counts()
+        for _ in range(passes):
+            for label, s in services.items():
+                if label == "untraced" and policy is None:
+                    with _KernelCalls(torch) as calls:
+                        answers[label] = _serve_batch(s["svc"], PPRQuery, queries)
+                    host_ms += [ms for *_, ms in calls.calls]
+                else:
+                    answers[label] = _serve_batch(s["svc"], PPRQuery, queries)
+                torch.cuda.synchronize()
+        launches += launch_counts()["fused_ppr_iteration"]
+        for label, s in services.items():
+            svc = s["svc"]
+            t = svc.telemetry.summary()
+            new = svc.recorder.traces_recorded - n0[label]
+            traces = svc.recorder.traces()[-new:] if new else []
+            waves = [tr for tr in traces if tr["kind"] == "wave"]
+            for tr in waves:
+                names = [c["name"] for c in tr["root"]["children"]]
+                if names != ["plan", "warm_start", "iterate", "topk", "resolve"]:
+                    _fail(f"traced {label} {exit_label}: wave spans {names}")
+                it = tr["root"]["children"][2]["attrs"]
+                want = {"iterations_run", "budget", "early_exit"} | (
+                    {"residual"} if policy is not None else set())
+                if set(it) != want or it["budget"] != 10:
+                    _fail(f"traced {label} {exit_label}: iterate attrs {it}")
+            out[f"{label} {exit_label}"] = dict(
+                wave_p50_ms=t["wave_latency_p50_s"] * 1e3,
+                wave_p95_ms=t["wave_latency_p95_s"] * 1e3, waves=int(t["waves"]),
+                early_exit_waves=int(t["early_exit_waves"]),
+                iterations_saved=int(t["iterations_saved"]),
+                wave_traces=len(waves), span_p50_ms=_wave_spans(waves))
+        base = answers["untraced"]
+        for label in ("traced", "sampled-0.1"):
+            _same_answers(np, f"tracing {label} {exit_label}", answers[label], base)
+            for key in ("early_exit_waves", "iterations_saved", "waves"):
+                a, b = out[f"{label} {exit_label}"][key], out[f"untraced {exit_label}"][key]
+                if a != b:
+                    _fail(f"tracing {label} {exit_label}: {key} {a} vs untraced {b}")
+    submitted = 2 * (passes + 1) * len(queries)
+    sampled = services["sampled-0.1"]["kinds"]["query"]
+    want = _expected_sampled(0.1, submitted)
+    if sampled != want or services["traced"]["kinds"]["query"] != submitted:
+        _fail(f"tracing: {sampled} sampled query traces of {submitted} (seeded draw: "
+              f"{want}); full tracing {services['traced']['kinds']['query']}")
+    for label, s in services.items():
+        tracer = s["svc"].tracer
+        if tracer is not None and tracer.started != tracer.finished:
+            _fail(f"tracing {label}: {tracer.started} traces started, "
+                  f"{tracer.finished} finished")
+    for key, r in out.items():
+        print(f"[trace] {key}: wave p50 {r['wave_p50_ms']:.3f} ms (p95 "
+              f"{r['wave_p95_ms']:.3f}), {r['waves']} waves, {r['early_exit_waves']} "
+              f"exited early; {r['wave_traces']} wave traces; span p50 "
+              f"{json.dumps({k: round(v, 4) for k, v in r['span_p50_ms'].items()})} ({card})")
+    host_p50 = statistics.median(host_ms)
+    print(f"[trace] answers with tracing = without (Q1.25 raw, f32 within 1e-6), "
+          f"iteration counts equal; sampled {sampled}/{submitted} queries at 0.1 "
+          f"(seeded draw {want}); the three services in turns each pass; host ms per "
+          f"fused_ppr_iteration call on the main thread (untraced) {host_p50:.4f}; "
+          f"fused_ppr_iteration launches {launches}")
+    return dict(runs=out, sampled=sampled, submitted=submitted, launches=launches,
+                host_ms_per_iteration_p50=host_p50, untraced=services["untraced"]["svc"])
+
+
+async def _post_all(http, host, port, bodies, concurrency):
+    """POST each body to /v1/ppr over ``concurrency`` keep-alive clients;
+    returns [(status, headers, payload, seconds)] in body order."""
+    import asyncio
+
+    results = [None] * len(bodies)
+    nxt = iter(range(len(bodies)))
+
+    async def worker():
+        client = http.AsyncHTTPClient(host, port)
+        try:
+            for i in nxt:
+                t0 = time.perf_counter()
+                status, headers, payload = await client.request("POST", "/v1/ppr", bodies[i])
+                results[i] = (status, headers, payload, time.perf_counter() - t0)
+        finally:
+            await client.close()
+
+    await asyncio.gather(*[worker() for _ in range(concurrency)])
+    return results
+
+
+async def _answers(what, requests, pump_task=None):
+    """The result of the ``requests`` coroutine, or a failure when the
+    pump task ends first (a wave raised: its clients would never be
+    answered) or after ``HTTP_TIMEOUT_S``."""
+    import asyncio
+
+    task = asyncio.ensure_future(requests)
+    waits = {task} if pump_task is None else {task, pump_task}
+    done, _ = await asyncio.wait(waits, timeout=HTTP_TIMEOUT_S,
+                                 return_when=asyncio.FIRST_COMPLETED)
+    if task in done:
+        return task.result()
+    task.cancel()
+    if pump_task is not None and pump_task in done:
+        _fail(f"{what}: the pump ended with {pump_task.exception()!r}")
+    _fail(f"{what}: no answer in {HTTP_TIMEOUT_S} s")
+
+
+def _check_http_answers(np, what, results, bodies, mirror):
+    """Every 200 answer equal to ``run_batch`` on ``mirror`` at the precision
+    the response names: Q raw-equal scores (the dequantized raw values),
+    float32 within 1e-6."""
+    from repro_torch.ppr_serving import PPRQuery
+
+    ok = [(b, r[2]) for b, r in zip(bodies, results) if r[0] == 200]
+    recs = mirror.run_batch([PPRQuery("g", b["vertex"], k=b["k"],
+                                      precision=None if p["precision"] == "f32"
+                                      else p["precision"]) for b, p in ok])
+    for (b, p), rec in zip(ok, recs):
+        verts = [r["vertex"] for r in p["recommendations"]]
+        scores = np.asarray([r["score"] for r in p["recommendations"]])
+        if p["precision"] != rec.precision:
+            _fail(f"{what}: vertex {b['vertex']} served at {p['precision']}, "
+                  f"run_batch at {rec.precision}")
+        if p["precision"] == "f32":
+            err = float(np.abs(scores - rec.scores).max())
+            if err > 1e-6:
+                _fail(f"{what}: f32 answer for vertex {b['vertex']} off run_batch by {err}")
+        elif verts != rec.vertices.tolist() or not np.array_equal(scores, rec.scores):
+            _fail(f"{what}: {p['precision']} answer for vertex {b['vertex']} differs "
+                  f"from run_batch")
+    return len(ok)
+
+
+def _http_tier(torch, np, g, dev, card, mirror):
+    """(b) ``PPRHTTPServer`` over a fused, traced (0.1), SLO-monitored,
+    OTLP-exporting service on gnp_2e5: the main load, then two bursts under
+    a tight admission config with the pump held back (6 queries: κ → 32;
+    then 160: κ → 64 and shedding)."""
+    import asyncio
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import _build
+    from repro_torch.obs import OTLPExporter
+    from repro_torch.ppr_serving import PPRService, http
+
+    col = _Collector()
+    try:
+        otlp = OTLPExporter(col.url)
+        svc = PPRService(kappa=K, iterations=10, alpha=ALPHA, max_wait=0.005,
+                         early_exit=True, tracing=0.1, slo=True, otlp=otlp, device=dev)
+        svc.register_graph("g", g, formats=[26], engine="fused")
+        mirror.convergence = svc.convergence
+        rng = np.random.default_rng(17)
+        precisions = (26, None, "auto")
+
+        def bodies(n):
+            return [{"graph": "g", "vertex": int(v), "k": 10,
+                     "precision": precisions[i % 3]}
+                    for i, v in enumerate(rng.integers(0, g.num_vertices, n))]
+
+        main_bodies, burst_a, burst_b = bodies(HTTP_REQUESTS), bodies(6), bodies(160)
+
+        async def serve_main():
+            server = http.PPRHTTPServer(svc, host="127.0.0.1", port=0)
+            await server.start()
+            t0 = time.perf_counter()
+            res = await _answers("http main", _post_all(
+                http, server.host, server.port, main_bodies, HTTP_CONCURRENCY),
+                server.pump._task)
+            wall = time.perf_counter() - t0
+            await server.stop()               # re-raises a pump that died
+            return res, wall
+
+        async def serve_bursts():
+            # back to the base κ: a burning SLO holds the last server's κ
+            # deepened past its drain, and a controller's base is the κ it
+            # finds
+            svc.set_kappa(K)
+            server = http.PPRHTTPServer(svc, host="127.0.0.1", port=0,
+                                        admission=http.AdmissionConfig(
+                                            high_water=48, low_water=4, deepen_water=4,
+                                            kappa_max=64, degrade_water=24,
+                                            degrade_low_water=4))
+            await server.transport.start()           # the pump held back
+            host, port = server.host, server.port
+            out = []
+            for burst, admitted in ((burst_a, 6), (burst_b, 49)):
+                # every arrival meets admission before a wave drains the queue:
+                # the first ``admitted`` queue, the rest (depth > 48) are shed
+                shed = server.admission.shed + len(burst) - admitted
+                task = asyncio.ensure_future(_post_all(http, host, port, burst, len(burst)))
+                # the burst's answers only once its pump starts: until then
+                # the queued requests wait, as intended
+                t_end = time.perf_counter() + HTTP_TIMEOUT_S
+                while svc.queue_depth() < admitted or server.admission.shed < shed:
+                    if time.perf_counter() > t_end:
+                        _fail(f"burst: the queue reached {svc.queue_depth()} of {admitted}, "
+                              f"{server.admission.shed} of {shed} shed")
+                    await asyncio.sleep(0.002)
+                server.pump.start()
+                pump_task = server.pump._task
+                out.append(await _answers("http burst", task, pump_task))
+                await server.pump.stop()      # re-raises a pump that died
+            endpoints = {}
+            for path in ("/v1/healthz", "/v1/stats", "/v1/metrics", "/v1/slo",
+                         "/v1/debug/traces?n=4"):
+                status, _, payload = await http.http_request(host, port, "GET", path)
+                endpoints[path] = (status, payload)
+            await server.transport.stop()
+            return out, endpoints
+
+        with _KernelCalls(torch) as calls:
+            reset_launch_counts()
+            main, wall = asyncio.run(serve_main())
+            summary = svc.telemetry_summary()             # the main load's
+            main_traces = svc.recorder.traces()
+            (res_a, res_b), endpoints = asyncio.run(serve_bursts())
+            launches = launch_counts()["fused_ppr_iteration"]
+        statuses = {}
+        for r in main + res_a + res_b:
+            statuses[r[0]] = statuses.get(r[0], 0) + 1
+        if 500 in statuses or set(statuses) - {200, 429}:
+            _fail(f"HTTP statuses {statuses}: only 200 and 429 (shed) are expected")
+        if any(r[0] != 200 for r in main + res_a):
+            _fail("the main load or the κ = 32 burst was shed")
+        shed = [r for r in res_b if r[0] == 429]
+        if len(shed) != 111 or any(r[2].get("code") != "shed"
+                                   or float(r[1]["retry-after"]) <= 0 for r in shed):
+            _fail(f"burst: {len(shed)} shed (want 111, each a 429 with Retry-After)")
+        for path, (status, _) in endpoints.items():
+            if status != 200:
+                _fail(f"GET {path} answered {status}")
+        checked = sum(_check_http_answers(np, what, res, b, mirror) for what, res, b in (
+            ("http main", main, main_bodies), ("http κ=32 burst", res_a, burst_a),
+            ("http κ=64 burst", res_b, burst_b)))
+        kappas = [e["kappa"] for e in svc.recorder.events_of_kind("kappa")]
+        by_k = calls.by_k()
+        if not (32 in kappas and 64 in kappas and by_k.get(32) and by_k.get(64)):
+            _fail(f"κ moves {kappas}, launches by K {by_k}: κ must reach 32 and 64 and "
+                  f"waves launch at both")
+        threads = {name for _, name, _, _ in calls.calls}
+        streams = {s for _, _, s, _ in calls.calls}
+        main_stream = torch.cuda.current_stream().cuda_stream
+        tickets = [key for key in _build._tickets if key[0] == "fused_ppr"]
+        if not all(t.startswith("ppr-wave") for t in threads) or streams != {main_stream}:
+            _fail(f"served waves ran on threads {threads}, streams {streams} (the main "
+                  f"thread's current stream: {main_stream})")
+        s = otlp.stats()
+        if (s["spans_exported"] != col.spans or s["spans_dropped"]
+                or s["send_failures"] or not col.spans):
+            _fail(f"OTLP: exporter {s}, collector received {col.spans} spans")
+        lat = sorted(r[3] for r in main)
+        host_ms = [ms for *_, ms in calls.calls]
+        out = dict(
+            requests=len(main), concurrency=HTTP_CONCURRENCY, wall_s=wall,
+            requests_per_s=len(main) / wall,
+            client_p50_ms=lat[len(lat) // 2] * 1e3,
+            client_p99_ms=lat[int(0.99 * (len(lat) - 1))] * 1e3,
+            waves=int(summary["waves"]), mean_occupancy=summary["mean_occupancy"],
+            wave_latency_p50_ms=summary["wave_latency_p50_s"] * 1e3,
+            statuses=statuses, shed=len(shed), kappa_moves=kappas, launches_by_k=by_k,
+            launches=launches, checked_answers=checked, threads=sorted(threads),
+            streams=sorted(streams), ticket_sets=[list(map(str, k)) for k in tickets],
+            host_ms_per_iteration_p50=statistics.median(host_ms),
+            otlp=s, collector_spans=col.spans, collector_metric_posts=col.metric_posts,
+            slo_states={sp["name"]: sp["state"] for sp in endpoints["/v1/slo"][1]["specs"]},
+            wave_span_p50_ms=_wave_spans(main_traces))
+        print(f"[http] {len(main)} POSTs at concurrency {HTTP_CONCURRENCY}: "
+              f"{out['requests_per_s']:.1f} requests/s, client p50/p99 "
+              f"{out['client_p50_ms']:.2f}/{out['client_p99_ms']:.2f} ms, "
+              f"{out['waves']} waves, mean occupancy "
+              f"{out['mean_occupancy']:.3f}, wave p50 {out['wave_latency_p50_ms']:.3f} ms "
+              f"(sampled wave traces' span p50 "
+              f"{json.dumps({k: round(v, 3) for k, v in out['wave_span_p50_ms'].items()})}); "
+              f"host ms per fused_ppr_iteration call on the worker {out['host_ms_per_iteration_p50']:.4f} "
+              f"({card})")
+        print(f"[http] bursts: κ moves {kappas}, fused_ppr_iteration launches by K "
+              f"{by_k}; statuses {statuses}; {checked} answers = run_batch; waves on "
+              f"threads {sorted(threads)}, stream {sorted(streams)} = the main thread's; "
+              f"fused ticket sets {len(tickets)}; endpoints 200: "
+              f"{', '.join(endpoints)}; SLO {out['slo_states']}")
+        print(f"[http] OTLP: {s['spans_exported']} spans exported in "
+              f"{s['span_batches_sent']} batches = {col.spans} received, "
+              f"{s['metric_pushes']} metric pushes, {s['spans_dropped']} dropped, "
+              f"{s['send_failures']} failed sends")
+        return out
+    finally:
+        col.close()
+
+
+def _driver_http(np, card, num_vertices):
+    """(d) ``ppr_run --http 0 ... --trace --slo --otlp-endpoint`` as a
+    subprocess (banner, 16 POSTs, GET /v1/slo, SIGINT: a clean exit and an
+    ``otlp:`` line with 0 failed sends), and ``ppr_run --serve
+    --dump-traces 3`` beside it (three span trees)."""
+    import asyncio
+    import os
+    import queue
+    import re
+    import signal
+    import threading
+
+    from repro_torch.ppr_serving import http
+
+    col = _Collector()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    base = [sys.executable, "-m", "repro_torch.launch.ppr_run", "--graph", "gnp_2e5",
+            "--scale", "1.0", "--bits", "26", "--kappa", str(K)]
+    t0 = time.perf_counter()
+    serve = subprocess.Popen(base + ["--http", "0", "--trace", "--slo",
+                                     "--otlp-endpoint", col.url],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             env=env, cwd=str(ROOT))
+    dump = subprocess.Popen(base + ["--serve", "--requests", "64", "--dump-traces", "3"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, cwd=str(ROOT))
+    try:
+        lines = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(ln) for ln in serve.stdout] + [lines.put("")],
+                         daemon=True).start()
+        banner = []
+        while not banner or "GET  /v1/debug/traces" not in banner[-1]:
+            try:
+                line = lines.get(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+            except queue.Empty:
+                _fail("ppr_run --http printed no banner in 300 s")
+            if not line:
+                _fail(f"ppr_run --http exited early: {serve.stderr.read()[-2000:]}")
+            banner.append(line.rstrip("\n"))
+        port = int(re.search(r"http://127\.0\.0\.1:(\d+)", "\n".join(banner)).group(1))
+        rng = np.random.default_rng(5)
+        bodies = [{"graph": "gnp_2e5", "vertex": int(v), "k": 10,
+                   "precision": (26, None, "auto")[i % 3]}
+                  for i, v in enumerate(rng.integers(0, num_vertices, 16))]
+
+        async def traffic():
+            res = await _answers("ppr_run --http", _post_all(
+                http, "127.0.0.1", port, bodies, 4))
+            slo = await http.http_request("127.0.0.1", port, "GET", "/v1/slo")
+            return res, slo
+
+        res, slo = asyncio.run(traffic())
+        serve.send_signal(signal.SIGINT)
+        serve.wait(timeout=120)
+        rest = []
+        while True:
+            line = lines.get(timeout=30)
+            if not line:
+                break
+            rest.append(line.rstrip("\n"))
+        err = serve.stderr.read()
+        out_d, err_d = dump.communicate(timeout=300)
+    finally:
+        for proc in (serve, dump):
+            if proc.poll() is None:
+                proc.kill()
+            with proc:                    # closes the pipes, reaps the process
+                pass
+        col.close()
+    wall = time.perf_counter() - t0
+    if serve.returncode != 0:
+        _fail(f"ppr_run --http exited {serve.returncode}: {err[-2000:]}")
+    if [r[0] for r in res] != [200] * 16 or slo[0] != 200:
+        _fail(f"ppr_run --http: statuses {[r[0] for r in res]}, /v1/slo {slo[0]}")
+    otlp_line = [ln for ln in rest if ln.startswith("otlp:")]
+    if len(otlp_line) != 1 or not otlp_line[0].endswith(" 0 failed sends") \
+            or int(otlp_line[0].split()[1]) != col.spans:
+        _fail(f"ppr_run --http: otlp line {otlp_line}, collector {col.spans} spans")
+    if dump.returncode != 0:
+        _fail(f"ppr_run --serve --dump-traces 3 exited {dump.returncode}: {err_d[-2000:]}")
+    trees = [ln for ln in out_d.splitlines() if ln.startswith("  trace ")]
+    if len(trees) != 3:
+        _fail(f"ppr_run --dump-traces 3 printed {len(trees)} span trees")
+    lat = sorted(r[3] for r in res)
+    print(f"[driver-http] ppr_run --http: banner read, 16 POSTs 200 (client p50 "
+          f"{lat[len(lat) // 2] * 1e3:.2f} ms), /v1/slo 200, SIGINT: exit 0, "
+          f"'{otlp_line[0]}' = {col.spans} spans received; ppr_run --serve "
+          f"--dump-traces 3: exit 0, 3 span trees; both in {wall:.1f} s ({card})")
+    return dict(wall_s=wall, otlp_line=otlp_line[0], collector_spans=col.spans,
+                client_p50_ms=lat[len(lat) // 2] * 1e3, dump_trees=trees)
+
+
+def observability_phase(torch, np, graphs, dev, card):
+    """Phase 9: (a) tracing on the fused wave, (b) the HTTP tier, (c) the
+    kernel at K = 32 and 64, (d) the driver's HTTP and trace modes.
+    ``launches`` counts fused_ppr_iteration over (a)'s and (b)'s served
+    waves; (c)'s comparisons are not counted."""
+    t0 = time.perf_counter()
+    deep = _deep_kernel_rows(torch, np, graphs, dev)
+    t1 = time.perf_counter()
+    traced = _traced_waves(torch, np, graphs["gnp_2e5"], dev, card)
+    t2 = time.perf_counter()
+    tier = _http_tier(torch, np, graphs["gnp_2e5"], dev, card, traced.pop("untraced"))
+    t3 = time.perf_counter()
+    driver = _driver_http(np, card, graphs["gnp_2e5"].num_vertices)
+    launches = traced["launches"] + tier["launches"]
+    print(f"[obs] phase 9 took {time.perf_counter() - t0:.1f} s ((c) {t1 - t0:.1f}, "
+          f"(a) {t2 - t1:.1f}, (b) {t3 - t2:.1f}, (d) {time.perf_counter() - t3:.1f}); "
+          f"fused_ppr_iteration launches {launches}")
+    return dict(deep_rows=deep, tracing=traced, http=tier, driver=driver,
+                launches=launches, seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the SpMV path
 # ---------------------------------------------------------------------------
 def spmv_path_phase(torch, np, g, dev):
@@ -2062,6 +2678,10 @@ def main() -> int:
         if r["kernel"] == "fused_ppr_iteration" and r["domain"] == "f32":
             shapes = autotune["auto"][r["graph"]]["shadow_shapes"]["max_abs_err"]
             r["max_abs_err"] = max(r["max_abs_err"], *shapes.values())
+    obs = observability_phase(torch, np, graphs, dev, card)
+    if obs["launches"] == 0:
+        _fail("phase 9's served waves launched fused_ppr_iteration no time")
+    rows += obs["deep_rows"]
     spmv_counts = spmv_path_phase(torch, np, graphs["gnp_2e5"], dev)
     lm_rows, tensor_cores = lm_kernel_phase(torch, dev)
     lm = lm_serving_phase(torch, np, dev)
@@ -2074,7 +2694,8 @@ def main() -> int:
         return "null" if x is None else f"{x:.4f}"
 
     for r in rows:
-        print(f"[times] {r['kernel']} {r['graph']} {r['domain']}: {r['ms']:.4f} "
+        print(f"[times] {r['kernel']} {r['graph']} {r['domain']}"
+              f"{'' if 'k' not in r else ' K=' + str(r['k'])}: {r['ms']:.4f} "
               f"{r['plain_ms']:.4f} {r['bound_ms']:.4f} {opt(r['library_ms'])} "
               f"{r['unpadded_bound_ms']:.4f} {r['bound_ms'] / r['ms']:.4f} | "
               f"{r['device_ms']:.4f} {r['bound_ms'] / r['device_ms']:.4f} "
@@ -2100,8 +2721,10 @@ def main() -> int:
     launches_by_path = {"fused_ppr_iteration": {
         "phase 3": service["launches"]["fused_ppr_iteration"],
         "phase 4b": deltas["launches"],
-        "phase 8": autotune["launches"]}}
-    launches["fused_ppr_iteration"] += deltas["launches"] + autotune["launches"]
+        "phase 8": autotune["launches"],
+        "phase 9": obs["launches"]}}
+    launches["fused_ppr_iteration"] += (deltas["launches"] + autotune["launches"]
+                                        + obs["launches"])
     sources = {"coo_spmv": ("src/repro_torch/csrc/coo_spmv.cu",
                             "src/repro/kernels/coo_spmv.py:125"),
                "fused_ppr_iteration": ("src/repro_torch/csrc/fused_ppr.cu",
@@ -2115,14 +2738,18 @@ def main() -> int:
                                "streams (gnp_2e5) and warm start (pl_2e5), and "
                                "phase 8: precision='auto' waves with their float32 "
                                "shadow references (gnp_2e5, pl_2e5), the "
-                               "unreachable-target waves and the prefetch polls",
+                               "unreachable-target waves and the prefetch polls, and "
+                               "phase 9: traced waves (tracing off, on and 0.1) and "
+                               "the waves the HTTP tier's pump ran on its worker "
+                               "thread at K = 16, 32 and 64 (gnp_2e5)",
         "fused_ppr_dangling_mass": "phase 3: PPRService served path, where the "
                                    "dangling fold runs inside fused_ppr_iteration's "
                                    "kernel A and this standalone launch is not made"}
     kernels = []
     for r in rows:
         src, repl = sources[r["kernel"]]
-        suffix = "" if r["graph"] == "gnp_2e5" else f",{r['graph']}"
+        suffix = ("" if "k" not in r else f",K={r['k']}") + (
+            "" if r["graph"] == "gnp_2e5" else f",{r['graph']}")
         kernels.append(dict(
             name=f"{r['kernel']}[{r['domain']}{suffix}]", route="cuda", source=src,
             replaces=repl, launches=launches[r["kernel"]],
@@ -2156,6 +2783,7 @@ def main() -> int:
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, streams=streams, kernel_rows=rows, service=service,
         early_exit=early, deltas=deltas, autotune=autotune,
+        observability={k: v for k, v in obs.items() if k != "deep_rows"},
         lm_kernel_rows=lm_rows, tensor_cores=tensor_cores, lm_serving=lm,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -13,21 +13,23 @@ rankings against the float64 CPU oracle at convergence (§5.3 metrics).
 ``--serve`` routes the same workload through ``PPRService`` (κ-batched waves,
 top-K, telemetry) instead of the raw ``batched_ppr`` loop; ``--replay-deltas N``
 serves a Zipf-ish query mix on a live service and replays N edge-delta rounds
-against it (scoped invalidation, warm start, prefetch re-warming).
+against it (scoped invalidation, warm start, prefetch re-warming);
+``--http PORT`` serves the graph behind the asyncio HTTP tier until
+interrupted.  ``--trace``/``--trace-sample``/``--dump-traces`` arm span
+tracing and print the flight recorder; ``--slo`` and ``--otlp-endpoint``
+arm the SLO monitor and the OTLP exporter of the HTTP mode.
 
 Everything runs on ``--device`` (``cuda`` unless the caller asks for the CPU;
-asking for ``cuda`` on a host without a GPU raises).  Not ported yet, each
-raising ``NotImplementedError`` that names its slice before any graph is
-built: ``--http`` (the HTTP slice), ``--shards N>1`` (the multi-GPU slice),
-and ``--trace``, ``--dump-traces``, ``--trace-sample``, ``--slo`` and
-``--otlp-endpoint`` (the observability slice).
+asking for ``cuda`` on a host without a GPU raises).  Not ported yet:
+``--shards N>1`` raises ``NotImplementedError`` naming the multi-GPU slice
+before any graph is built.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-from repro_torch.ppr_serving.slices import HTTP_SLICE, MESH_SLICE, OBS_SLICE, not_ported
+from repro_torch.ppr_serving.slices import MESH_SLICE, not_ported
 
 
 def _parse_args(argv=None):
@@ -50,7 +52,11 @@ def _parse_args(argv=None):
     ap.add_argument("--topk", type=int, default=10,
                     help="with --serve: recommendations per query")
     ap.add_argument("--http", type=int, default=None, metavar="PORT",
-                    help=f"serve the graph over HTTP on PORT (comes with {HTTP_SLICE})")
+                    help="serve the graph over HTTP on PORT (0 = ephemeral): "
+                         "asyncio tier with admission control, load shedding "
+                         "and SLO-aware quality degradation; runs until "
+                         "interrupted (POST /v1/ppr, GET /v1/healthz, "
+                         "GET /v1/stats)")
     ap.add_argument("--replay-deltas", type=int, default=0, metavar="N",
                     help="dynamic-updates mode: serve a Zipf-ish query mix, "
                          "then replay N random edge-delta rounds against the "
@@ -60,18 +66,27 @@ def _parse_args(argv=None):
                     help="with --replay-deltas: edge insertions per round "
                          "(half as many removals ride along)")
     ap.add_argument("--trace", action="store_true",
-                    help=f"arm per-query span tracing (comes with {OBS_SLICE})")
+                    help="with --serve/--http/--replay-deltas: arm per-query "
+                         "span tracing (every query records its admission "
+                         "wait, cache probe, wave execution and convergence "
+                         "into the flight recorder)")
     ap.add_argument("--dump-traces", type=int, default=0, metavar="N",
-                    help=f"print the flight recorder's last N traces (comes with "
-                         f"{OBS_SLICE})")
+                    help="after the run, print the flight recorder's last N "
+                         "traces as span trees plus control-plane events "
+                         "(implies --trace)")
     ap.add_argument("--trace-sample", type=float, default=None, metavar="RATE",
-                    help=f"head-sample tracing at RATE (comes with {OBS_SLICE})")
+                    help="head-sample tracing at RATE in (0, 1] instead of "
+                         "tracing everything (implies --trace; seeded, so a "
+                         "replayed run samples the same queries)")
     ap.add_argument("--slo", action="store_true",
-                    help=f"with --http: arm the SLO burn-rate monitor (comes with "
-                         f"{OBS_SLICE})")
+                    help="with --http: arm the SLO burn-rate monitor "
+                         "(default latency/shed/quality specs, GET /v1/slo, "
+                         "burn-driven admission advisories)")
     ap.add_argument("--otlp-endpoint", default=None, metavar="URL",
-                    help=f"with --http: export to an OTLP/HTTP collector (comes "
-                         f"with {OBS_SLICE})")
+                    help="with --http: export spans + delta metrics to an "
+                         "OTLP/HTTP collector at URL (POSTs to URL/v1/traces "
+                         "and URL/v1/metrics); the flight recorder still "
+                         "records everything locally")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, or cpu for the plain "
                          "PyTorch versions)")
@@ -79,17 +94,9 @@ def _parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    """Raise for a flag whose slice is not ported yet, naming the slice."""
-    unported = [("--http", args.http is not None, HTTP_SLICE),
-                ("--shards N>1", args.shards > 1, MESH_SLICE),
-                ("--trace", args.trace, OBS_SLICE),
-                ("--dump-traces", bool(args.dump_traces), OBS_SLICE),
-                ("--trace-sample", args.trace_sample is not None, OBS_SLICE),
-                ("--slo", args.slo, OBS_SLICE),
-                ("--otlp-endpoint", args.otlp_endpoint is not None, OBS_SLICE)]
-    for flag, given, slice_name in unported:
-        if given:
-            raise not_ported(f"ppr_run {flag}", slice_name)
+    """Raise for ``--shards N>1``, whose slice is not ported yet."""
+    if args.shards > 1:
+        raise not_ported("ppr_run --shards N>1", MESH_SLICE)
 
 
 def main(argv=None):
@@ -114,6 +121,9 @@ def main(argv=None):
     fmt = None if args.use_float else format_for_bits(args.bits)
     label = "float32" if fmt is None else fmt.name
 
+    if args.http is not None:
+        _serve_http(args, g, fmt, label, dev)
+        return
     if args.replay_deltas:
         _replay_deltas(args, g, fmt, label, dev)
         return
@@ -148,7 +158,7 @@ def _serve(args, g, vertices, fmt, label, dev):
 
     svc = PPRService(kappa=args.kappa, iterations=args.iterations,
                      alpha=args.alpha, cache_capacity=0,      # measure compute
-                     device=dev)
+                     tracing=_tracing(args), device=dev)
     svc.register_graph(args.graph, g, formats=[] if fmt is None else [fmt])
     precision = None if fmt is None else fmt.name
     queries = [PPRQuery(args.graph, int(v), k=args.topk, precision=precision)
@@ -168,7 +178,66 @@ def _serve(args, g, vertices, fmt, label, dev):
             v = t[k]
             print(f"  {k:28s} {v:.5f}" if isinstance(v, float) else
                   f"  {k:28s} {v}")
+    if args.dump_traces:
+        _dump_recorder(svc, args.dump_traces)
     return None
+
+
+def _serve_http(args, g, fmt, label, dev):
+    """HTTP serving mode: the registered graph behind the asyncio tier.
+
+    Auto-precision is always armed (the SLO degradation path needs the
+    controller); an explicit --bits additionally pre-quantizes that format so
+    explicit-precision requests skip the first-touch quantization upload."""
+    import asyncio
+
+    from repro_torch.ppr_serving import PPRHTTPServer, PPRService
+
+    otlp = None
+    if args.otlp_endpoint:
+        from repro_torch.obs import OTLPExporter
+        otlp = OTLPExporter(args.otlp_endpoint)
+    svc = PPRService(kappa=args.kappa, iterations=args.iterations,
+                     alpha=args.alpha, max_wait=0.005, early_exit=True,
+                     tracing=_tracing(args), slo=args.slo or None, otlp=otlp,
+                     device=dev)
+    svc.register_graph(args.graph, g, formats=[] if fmt is None else [fmt])
+    server = PPRHTTPServer(svc, port=args.http)
+
+    async def _run():
+        await server.start()
+        print(f"{label}: serving graph {args.graph!r} "
+              f"(|V|={g.num_vertices:,}) on http://{server.host}:{server.port}")
+        print(f"  POST /v1/ppr      "
+              f'{{"graph": "{args.graph}", "vertex": 0, "k": {args.topk}, '
+              f'"precision": "auto"}}')
+        print("  GET  /v1/healthz  liveness + queue depth")
+        print("  GET  /v1/stats    telemetry + admission counters")
+        print("  GET  /v1/metrics  Prometheus text exposition (?format=json)")
+        if svc.slo is not None:
+            print("  GET  /v1/slo      SLO states + burn rates (?n=K events)")
+        print("  GET  /v1/debug/traces  flight recorder (?n=K)")
+        if otlp is not None:
+            print(f"  exporting OTLP to {otlp.endpoint} "
+                  f"(/v1/traces, /v1/metrics)")
+        try:
+            await asyncio.Event().wait()
+        finally:
+            await server.stop()
+
+    try:
+        asyncio.run(_run())
+    except KeyboardInterrupt:
+        print("\nshutting down")
+    if otlp is not None:
+        s = otlp.stats()
+        print(f"otlp: {s['spans_exported']} spans in "
+              f"{s['span_batches_sent']} batches, "
+              f"{s['metric_pushes']} metric pushes, "
+              f"{s['spans_dropped']} dropped, "
+              f"{s['send_failures']} failed sends")
+    if args.dump_traces:
+        _dump_recorder(svc, args.dump_traces)
 
 
 def _replay_deltas(args, g, fmt, label, dev):
@@ -190,7 +259,7 @@ def _replay_deltas(args, g, fmt, label, dev):
 
     svc = PPRService(kappa=args.kappa, iterations=args.iterations,
                      alpha=args.alpha, early_exit=True, warm_start=True,
-                     prefetch=True, device=dev)
+                     prefetch=True, tracing=_tracing(args), device=dev)
     svc.register_graph(args.graph, g,
                        formats=[] if fmt is None else [fmt])
     precision = None if fmt is None else fmt.name
@@ -237,6 +306,32 @@ def _replay_deltas(args, g, fmt, label, dev):
         v = t[k]
         print(f"  {k:28s} {v:.4f}" if isinstance(v, float) else
               f"  {k:28s} {v}")
+    if args.dump_traces:
+        _dump_recorder(svc, args.dump_traces)
+
+
+def _tracing(args):
+    """The service's ``tracing`` argument: a sample rate when requested,
+    else the plain on/off bool."""
+    if args.trace_sample is not None:
+        return args.trace_sample
+    return bool(args.trace or args.dump_traces)
+
+
+def _dump_recorder(svc, n):
+    """Print the flight recorder's tail: control-plane events (the incident
+    timeline), then the last ``n`` completed traces as span trees."""
+    from repro_torch.obs import format_event, format_trace
+
+    snap = svc.recorder.snapshot(n_traces=n, n_events=n)
+    print(f"flight recorder: {snap['traces_recorded']} traces / "
+          f"{snap['events_recorded']} events recorded "
+          f"(rings {snap['trace_capacity']}/{snap['event_capacity']})")
+    for ev in snap["events"]:
+        print("  " + format_event(ev))
+    for tr in snap["traces"]:
+        for line in format_trace(tr).splitlines():
+            print("  " + line)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,8 @@ from __future__ import annotations
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+from repro_torch.obs.trace import Trace
+
 __all__ = ["FlightRecorder"]
 
 
@@ -40,7 +42,7 @@ class FlightRecorder:
         self.events_recorded = 0
 
     # ------------------------------------------------------------------
-    def record_trace(self, trace: Any) -> None:
+    def record_trace(self, trace: Trace) -> None:
         """Sink for ``Tracer`` — stores the trace's dict form, so the ring
         never pins service objects (futures, arrays) against GC."""
         self._traces.append(trace.to_dict())

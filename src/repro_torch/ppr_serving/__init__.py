@@ -3,7 +3,9 @@
 ``PPRService`` admits queries into κ-batched waves on a registered graph and
 serves ranked, self-excluding top-K ``Recommendation``s through futures;
 ``precision="auto"`` resolves through the adaptive-precision controller and
-``prefetch=`` warms the result cache on idle polls.  A
+``prefetch=`` warms the result cache on idle polls; ``tracing=``/``slo=``/
+``otlp=`` arm the observability layer, and ``PPRHTTPServer`` serves the
+futures API over asyncio HTTP (``repro_torch.ppr_serving.http``).  A
 graph registers onto an engine family: "single" (plain PyTorch) or "fused"
 (the hand-written fused-iteration CUDA kernel; its plain version on the CPU).
 Everything runs on the service's ``device`` ("cuda" unless the caller asks
@@ -27,6 +29,13 @@ from repro_torch.ppr_serving.engine import (
 )
 from repro_torch.ppr_serving.futures import PPRFuture, QueryRejected
 from repro_torch.ppr_serving.graphs import RegisteredGraph
+from repro_torch.ppr_serving.http import (
+    AdmissionConfig,
+    AdmissionController,
+    PPRHTTPServer,
+    ServingApp,
+    WavePump,
+)
 from repro_torch.ppr_serving.prefetch import PrefetchConfig, Prefetcher
 from repro_torch.ppr_serving.scheduler import Wave, WaveScheduler
 from repro_torch.ppr_serving.service import (
@@ -53,5 +62,7 @@ __all__ = [
     "WaveScheduler", "Wave",
     "LRUCache", "ServiceTelemetry",
     "PrefetchConfig", "Prefetcher",
+    "PPRHTTPServer", "ServingApp", "AdmissionConfig", "AdmissionController",
+    "WavePump",
     "topk_dense", "topk_streaming",
 ]

@@ -99,8 +99,17 @@ class WaveEngine(abc.ABC):
     def plan(self, rg, fmt: Optional[QFormat] = None, *, alpha: float,
              iterations: int,
              convergence: Optional[ConvergencePolicy] = None,
-             topk_tile: Optional[int] = None) -> WavePlan:
-        """Bind a ``WavePlan`` to ``rg``'s current device state."""
+             topk_tile: Optional[int] = None,
+             trace_hook: Optional[Callable[[Dict[str, Any]], None]] = None
+             ) -> WavePlan:
+        """Bind a ``WavePlan`` to ``rg``'s current device state.
+
+        ``trace_hook``, when given, receives one dict per ``iterate`` call
+        with the convergence internals a trace wants (``iterations_run``,
+        ``budget``, ``early_exit``, and the last checked ``residual`` when an
+        early-exit policy is active).  Tracking residuals costs host syncs,
+        so the hook — not the service — decides whether the monitor runs
+        with ``track_deltas``; a hookless plan pays nothing."""
 
     def on_delta(self, rg, info) -> None:
         """Refresh the engine's device state after a host-side edge-delta
@@ -112,23 +121,35 @@ class WaveEngine(abc.ABC):
     # shared drivers
     def _make_iterate(self, iterations: int,
                       convergence: Optional[ConvergencePolicy],
-                      fixed: bool, scale: Optional[int]):
+                      fixed: bool, scale: Optional[int],
+                      trace_hook=None):
         """Wave iteration driver: fixed budget, or early-exit under a policy.
 
-        Convergence runs with ``track_deltas=False``: the per-iteration
-        residuals would cost host syncs that a serving wave never reads."""
+        With a ``trace_hook``, convergence runs ``track_deltas=True`` (the
+        per-iteration residuals cost host syncs — only a tracing wave pays
+        them) and the hook receives the iterate's convergence internals."""
         if convergence is None:
             def iterate(step, P0):
                 P = P0
                 for _ in range(iterations):
                     P = step(P)
+                if trace_hook is not None:
+                    trace_hook({"iterations_run": iterations,
+                                "budget": iterations, "early_exit": False})
                 return P, iterations
             return iterate
 
         def iterate(step, P0):
-            P, iters_run, _ = run_until_converged(
+            track = trace_hook is not None
+            P, iters_run, deltas = run_until_converged(
                 step, P0, iterations, convergence, fixed=fixed,
-                scale=scale, track_deltas=False)
+                scale=scale, track_deltas=track)  # hookless: skip the syncs
+            if track:
+                trace_hook({
+                    "iterations_run": iters_run, "budget": iterations,
+                    "early_exit": iters_run < iterations,
+                    "residual": float(deltas[-1]) if deltas else None,
+                })
             return P, iters_run
         return iterate
 

@@ -186,41 +186,65 @@ def _residual_delta(res, scale: Optional[int]) -> float:
 
 def _make_fused_iterate(engine: WaveEngine, iterations: int,
                         convergence: Optional[ConvergencePolicy],
-                        fixed: bool, scale: Optional[int], cell: dict):
+                        fixed: bool, scale: Optional[int], cell: dict,
+                        trace_hook=None):
     """The ``run_until_converged`` contract driven off the kernel's fused
     residual: same check cadence, same exit conditions, same parity-correct
     return states as ``ConvergenceMonitor`` — without its per-check
-    full-array device comparisons (the ∞-residual is already on device)."""
+    full-array device comparisons (the ∞-residual is already on device).
+
+    With a ``trace_hook`` the residual of every check is kept, checks before
+    ``min_iterations`` included (one host read of the kernel's Σd² row
+    each), and the hook gets the same dict on every exit; a hookless wave
+    checks only from ``min_iterations`` on, where a check can exit."""
     if convergence is None:
-        return engine._make_iterate(iterations, None, fixed, scale)
+        return engine._make_iterate(iterations, None, fixed, scale,
+                                    trace_hook=trace_hook)
     pol = convergence
+    track = trace_hook is not None
+
+    def finish(P, t, deltas):
+        if track:
+            trace_hook({
+                "iterations_run": t, "budget": iterations,
+                "early_exit": t < iterations,
+                "residual": float(deltas[-1]) if deltas else None,
+            })
+        return P, t
 
     def iterate(step, P0):
+        deltas = []
         P, prev2 = P0, None
         for t in range(1, iterations + 1):
             P_next = step(P)
             res = cell["res"]
             checking = (t % pol.check_every == 0
-                        and t >= pol.min_iterations)
+                        and (track or t >= pol.min_iterations))
             prev2, prev2_at_check = (P, prev2) if fixed else (None, None)
             if checking and fixed:
                 # zero ∞-residual ⇔ exact integer state equality: raw diffs
                 # are whole numbers, the smallest nonzero one (1.0) is
                 # exactly representable in f32 and a max never rounds a
                 # nonzero operand to zero.
-                if bool(res[1].max() == 0.0):
-                    return P_next, t
-                if prev2_at_check is not None and states_equal(
-                        P_next, prev2_at_check):
-                    # period-2 absorbing cycle: parity of the remaining
-                    # budget picks the bit-identical state
-                    if (iterations - t) % 2 != 0:
-                        return P, t
-                    return P_next, t
-            elif checking and _residual_delta(res, scale) < pol.epsilon:
-                return P_next, t
+                strict = bool(res[1].max() == 0.0)
+                if track:
+                    deltas.append(0.0 if strict else _residual_delta(res, scale))
+                if t >= pol.min_iterations:
+                    if strict:
+                        return finish(P_next, t, deltas)
+                    if prev2_at_check is not None and states_equal(
+                            P_next, prev2_at_check):
+                        # period-2 absorbing cycle: parity of the remaining
+                        # budget picks the bit-identical state
+                        if (iterations - t) % 2 != 0:
+                            return finish(P, t, deltas)
+                        return finish(P_next, t, deltas)
+            elif checking:
+                deltas.append(_residual_delta(res, scale))
+                if t >= pol.min_iterations and deltas[-1] < pol.epsilon:
+                    return finish(P_next, t, deltas)
             P = P_next
-        return P, iterations
+        return finish(P, iterations, deltas)
 
     return iterate
 
@@ -246,7 +270,7 @@ class FusedFloatEngine(WaveEngine):
 
     def plan(self, rg, fmt: Optional[QFormat] = None, *, alpha: float,
              iterations: int, convergence=None,
-             topk_tile: Optional[int] = None) -> WavePlan:
+             topk_tile: Optional[int] = None, trace_hook=None) -> WavePlan:
         self.prepare(rg)
         num_vertices = rg.num_vertices
         cell = {"res": None}
@@ -255,7 +279,7 @@ class FusedFloatEngine(WaveEngine):
             initial=lambda pers: personalization_matrix(num_vertices, pers),
             step=_bind_fused_step(rg, None, alpha, cell),
             iterate=_make_fused_iterate(self, iterations, convergence, False,
-                                        None, cell),
+                                        None, cell, trace_hook=trace_hook),
             topk=self._make_topk(topk_tile))
 
     def on_delta(self, rg, info) -> None:
@@ -283,7 +307,7 @@ class FusedFixedEngine(WaveEngine):
 
     def plan(self, rg, fmt: Optional[QFormat] = None, *, alpha: float,
              iterations: int, convergence=None,
-             topk_tile: Optional[int] = None) -> WavePlan:
+             topk_tile: Optional[int] = None, trace_hook=None) -> WavePlan:
         if fmt is None:
             raise ValueError(f"{self.key!r} engine needs a concrete Q format")
         self.prepare(rg, fmt)
@@ -295,7 +319,7 @@ class FusedFixedEngine(WaveEngine):
                 num_vertices, pers, fmt),
             step=_bind_fused_step(rg, fmt, alpha, cell),
             iterate=_make_fused_iterate(self, iterations, convergence, True,
-                                        fmt.scale, cell),
+                                        fmt.scale, cell, trace_hook=trace_hook),
             topk=self._make_topk(topk_tile))
 
     def on_delta(self, rg, info) -> None:

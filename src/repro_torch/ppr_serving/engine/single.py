@@ -35,7 +35,7 @@ class FloatEngine(WaveEngine):
 
     def plan(self, rg, fmt: Optional[QFormat] = None, *, alpha: float,
              iterations: int, convergence=None,
-             topk_tile: Optional[int] = None) -> WavePlan:
+             topk_tile: Optional[int] = None, trace_hook=None) -> WavePlan:
         x, y, val = rg.device_full()
         dangling = rg.dangling
         num_vertices = rg.num_vertices
@@ -48,7 +48,8 @@ class FloatEngine(WaveEngine):
             engine=self.key, fixed=False, scale=None,
             initial=lambda pers: personalization_matrix(num_vertices, pers),
             step=step,
-            iterate=self._make_iterate(iterations, convergence, False, None),
+            iterate=self._make_iterate(iterations, convergence, False, None,
+                                        trace_hook=trace_hook),
             topk=self._make_topk(topk_tile))
 
     def on_delta(self, rg, info) -> None:
@@ -70,7 +71,7 @@ class FixedEngine(WaveEngine):
 
     def plan(self, rg, fmt: Optional[QFormat] = None, *, alpha: float,
              iterations: int, convergence=None,
-             topk_tile: Optional[int] = None) -> WavePlan:
+             topk_tile: Optional[int] = None, trace_hook=None) -> WavePlan:
         if fmt is None:
             raise ValueError(f"{self.key!r} engine needs a concrete Q format")
         body = make_ppr_fixed_step(fmt, rg.num_vertices, alpha)
@@ -87,7 +88,8 @@ class FixedEngine(WaveEngine):
             initial=lambda pers: personalization_matrix_fixed(
                 num_vertices, pers, fmt),
             step=step,
-            iterate=self._make_iterate(iterations, convergence, True, fmt.scale),
+            iterate=self._make_iterate(iterations, convergence, True, fmt.scale,
+                                        trace_hook=trace_hook),
             topk=self._make_topk(topk_tile))
 
     def on_delta(self, rg, info) -> None:

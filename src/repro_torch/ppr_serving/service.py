@@ -30,13 +30,19 @@ controller's quality estimates current (paper Figs. 4-6 measured online).
 invalidation, the armed engines' device refresh), and ``warm_start`` seeds
 waves from each vertex's last converged column (``repro_torch.graph_updates``).
 
-Not in this slice, each raising ``NotImplementedError`` that names the slice
-that brings it: ``tracing``, ``slo`` and ``otlp`` (the observability slice),
-``mesh`` (the multi-GPU slice), and the deprecated ``serve``/``pump``/``drain``.
+``tracing``/``slo``/``otlp`` arm the observability layer
+(``repro_torch.obs``): per-query and per-wave span traces into the flight
+recorder and an OTLP exporter, and SLO burn rates over the telemetry
+registry.  ``set_kappa`` and ``export_telemetry`` are the hooks the HTTP
+tier's admission controller and pump drive (``repro_torch.ppr_serving.http``).
+
+Not in this slice, each raising ``NotImplementedError``: ``mesh`` (the
+multi-GPU slice), and the deprecated ``serve``/``pump``/``drain``.
 """
 from __future__ import annotations
 
 import dataclasses
+import random
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -51,14 +57,16 @@ from repro_torch.core.metrics import ranking
 from repro_torch.device import resolve_device
 from repro_torch.graph_updates.delta import EdgeDelta
 from repro_torch.graph_updates.warmstart import WarmStartStore
-from repro_torch.obs import FlightRecorder
+from repro_torch.obs import FlightRecorder, Tracer, fanout_sink
+from repro_torch.obs.otlp import OTLPExporter
+from repro_torch.obs.slo import SLOMonitor, SLOSpec, default_slo_specs
 from repro_torch.ppr_serving.cache import LRUCache
 from repro_torch.ppr_serving.engine import engine_families, engine_for, family_members
 from repro_torch.ppr_serving.futures import PPRFuture, QueryRejected
 from repro_torch.ppr_serving.graphs import RegisteredGraph
 from repro_torch.ppr_serving.prefetch import PrefetchConfig, Prefetcher
 from repro_torch.ppr_serving.scheduler import Wave, WaveScheduler
-from repro_torch.ppr_serving.slices import MESH_SLICE, OBS_SLICE, not_ported
+from repro_torch.ppr_serving.slices import MESH_SLICE, not_ported
 from repro_torch.ppr_serving.telemetry import ServiceTelemetry
 
 Precision = Union[None, int, str, QFormat]
@@ -144,7 +152,20 @@ class PPRService:
     it with ``early_exit`` so the shorter convergence distance actually
     saves iterations.  The columns live on the host: a warm wave copies its
     final state to the host once.  ``prefetch`` arms the idle-poll cache
-    warmer (True, or a ``PrefetchConfig``)."""
+    warmer (True, or a ``PrefetchConfig``).
+
+    ``tracing`` arms per-query/per-wave span traces (completed traces land in
+    ``self.recorder``); ``True`` traces everything, a float in (0, 1)
+    head-samples that fraction of queries with a seeded RNG (one draw a
+    query; a wave trace is kept when any occupant is sampled).  A traced
+    wave's ``iterate`` span carries ``iterations_run``, ``budget``,
+    ``early_exit`` and, under an early-exit policy, the last checked
+    ``residual``.  ``slo`` arms the burn-rate monitor (``True`` for the
+    default specs, a spec sequence, or a prebuilt ``SLOMonitor`` over this
+    service's telemetry registry); ``otlp`` attaches an ``OTLPExporter`` that
+    receives completed traces beside the flight recorder and metric pushes
+    from ``export_telemetry()``.  All three default off, and then cost one
+    ``is None`` check a query."""
 
     def __init__(
         self,
@@ -161,16 +182,10 @@ class PPRService:
         tracing: Union[bool, float] = False,
         reservoir_size: int = 1024,
         time_fn=time.monotonic,
-        slo=None,
-        otlp=None,
+        slo: Union[None, bool, Sequence[SLOSpec], SLOMonitor] = None,
+        otlp: Optional[OTLPExporter] = None,
         device="cuda",
     ):
-        for name, value, slice_name in (
-                ("tracing", tracing, OBS_SLICE),
-                ("slo", slo, OBS_SLICE),
-                ("otlp", otlp, OBS_SLICE)):
-            if value is not None and value is not False:
-                raise not_ported(f"PPRService({name}=...)", slice_name)
         self.device = resolve_device(device)
         self.kappa = kappa
         self.iterations = iterations
@@ -181,6 +196,30 @@ class PPRService:
         self.cache = LRUCache(cache_capacity)
         self.telemetry = ServiceTelemetry(reservoir_size=reservoir_size)
         self.recorder = FlightRecorder()
+        # tracing=True → rate 1.0; a float is a head-sampling rate.  bool is
+        # checked first: True/False are ints.
+        rate = (1.0 if tracing is True else
+                0.0 if tracing is False else float(tracing))
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"tracing rate must be in [0, 1], got {tracing}")
+        self._trace_rate = rate
+        # seeded: a replayed run samples the same queries
+        self._trace_rng = random.Random(0)
+        self.otlp = otlp
+        if otlp is not None and otlp._mirror is None:
+            otlp.bind_registry(self.telemetry.registry)
+        sink = self.recorder.record_trace if otlp is None else \
+            fanout_sink(self.recorder.record_trace, otlp.record_trace)
+        self.tracer: Optional[Tracer] = (
+            Tracer(time_fn=time_fn, sink=sink) if rate > 0.0 else None)
+        if slo is None or slo is False:
+            self.slo: Optional[SLOMonitor] = None
+        elif isinstance(slo, SLOMonitor):
+            self.slo = slo
+        else:
+            specs = default_slo_specs() if slo is True else tuple(slo)
+            self.slo = SLOMonitor(self.telemetry.registry, specs,
+                                  time_fn=time_fn, recorder=self.recorder)
         self.controller = PrecisionController(autotune or AutotuneConfig())
         if early_exit is True:
             self.convergence: Optional[ConvergencePolicy] = ConvergencePolicy()
@@ -201,8 +240,10 @@ class PPRService:
         self._graphs: Dict[str, RegisteredGraph] = {}
         self._wave_counter = 0
         # Guards the quick mutation sections (scheduler, cache, controller,
-        # deltas, wave bookkeeping); engine compute runs outside it.  RLock:
-        # PPRFuture.result() re-enters through _drive on the same thread.
+        # deltas, wave bookkeeping), so the HTTP pump can drive poll()/flush()
+        # on its worker thread while the event-loop thread calls submit();
+        # engine compute runs outside it.  RLock: PPRFuture.result()
+        # re-enters through _drive on the same thread.
         self._lock = threading.RLock()
         # last cold (unseeded) iteration count per (graph, precision): the
         # baseline warm_start_iterations_saved is measured against
@@ -242,6 +283,7 @@ class PPRService:
                     f"vertex {fut.query.vertex} was validated against the old "
                     f"topology and cannot be served — resubmit it against the "
                     f"new graph", code="graph-replaced"))
+                self._finish_rejected(fut, "graph-replaced")
             self.recorder.record_event("graph_replaced", self.time_fn(),
                                        graph=name)
             self.controller.forget_graph(name)
@@ -342,6 +384,7 @@ class PPRService:
                     f"{epoch}): its personalization vertex is inside the "
                     f"delta's affected frontier — resubmit to recompute on "
                     f"the new topology", code="delta-invalidated"))
+                self._finish_rejected(fut, "delta-invalidated")
             else:
                 new_key = (key[0], key[1], key[2], epoch)
                 fut._wave_key = new_key
@@ -385,6 +428,26 @@ class PPRService:
         """Seconds the longest-waiting pending query has been queued."""
         return self.scheduler.oldest_wait_s(now)
 
+    def set_kappa(self, kappa: int) -> None:
+        """Retune the wave batch depth in place (deepen κ under load to
+        amortize one edge-stream pass over more queries before shedding;
+        relax it as the queue drains).  Applies to waves formed after the
+        call — already-queued queries launch at the new depth.  Nothing on
+        the device is sized by κ: each wave allocates its own [V, κ] state,
+        and the fused kernel takes any κ (κ % 4 == 0 runs its four-wide
+        template)."""
+        if kappa < 1:
+            raise ValueError(f"kappa must be >= 1, got {kappa}")
+        with self._lock:
+            if kappa == self.kappa:
+                return
+            self.telemetry.record_kappa_change(deepened=kappa > self.kappa)
+            self.recorder.record_event(
+                "kappa", self.time_fn(), kappa=kappa,
+                deepened=kappa > self.kappa, previous=self.kappa)
+            self.kappa = kappa
+            self.scheduler.kappa = kappa
+
     def degrade_quality(self, target: float) -> None:
         """Impose the SLO-degradation ceiling: until ``restore_quality``,
         every ``precision="auto"`` query resolves against
@@ -408,6 +471,21 @@ class PPRService:
             self.controller.set_target_ceiling(None)
             self.telemetry.record_slo_transition(degraded=False)
             self.recorder.record_event("slo_recover", self.time_fn())
+
+    # ------------------------------------------------------------------
+    def _trace_sampled(self) -> bool:
+        """Head-sampling decision for one query — exactly one seeded RNG
+        draw at rates below 1.0, no draw at full tracing."""
+        return self._trace_rate >= 1.0 or \
+            self._trace_rng.random() < self._trace_rate
+
+    def export_telemetry(self) -> int:
+        """Drive the attached OTLP exporter one cycle (queued span batches +
+        a delta metrics push when due); returns POSTs made, 0 with no
+        exporter.  The serving pump calls this off the event loop."""
+        if self.otlp is None:
+            return 0
+        return self.otlp.tick(self.telemetry.registry)
 
     # ------------------------------------------------------------------
     def _resolve_precision(self, q: PPRQuery) -> str:
@@ -466,18 +544,39 @@ class PPRService:
                 f"vertices of {q.graph!r} (|V|={rg.num_vertices}, the query "
                 f"vertex excludes itself)")
         with self._lock:
+            tracer = self.tracer
+            tr = None
+            if tracer is not None and self._trace_sampled():
+                tr = tracer.start("query", "query", graph=q.graph,
+                                  vertex=int(q.vertex), k=int(q.k),
+                                  requested=str(q.precision))
+                if self._trace_rate < 1.0:
+                    # lets an exporter backend re-weight sampled traces
+                    tr.attrs["sample_rate"] = self._trace_rate
+                sp = tr.span("resolve_precision", self.time_fn())
             pkey = self._resolve_precision(q)
+            if tr is not None:
+                sp.end(self.time_fn(), precision=pkey)
             self.telemetry.record_query_vertex(q.graph, int(q.vertex),
                                                k=q.k, pkey=pkey)
             fut = PPRFuture(q, self)
+            if tr is not None:
+                fut._trace = tr
+                sp = tr.span("cache_probe", self.time_fn())
             hit = self.cache.get(self._cache_key(q, pkey))
             self.telemetry.record_cache(hit is not None)
+            if tr is not None:
+                sp.end(self.time_fn(), hit=hit is not None)
             if hit is not None:
                 verts, scores = hit
                 if not q.prefetch:
                     self.telemetry.record_query_latency(q.graph, 0.0)
                 fut._resolve(Recommendation(q, verts.copy(), scores.copy(),
                                             source="cache", precision=pkey))
+                if tr is not None:
+                    tracer.finish(tr, outcome="resolved", source="cache",
+                                  precision=pkey)
+                    fut._trace = None
                 return fut
             key = (q.graph, pkey, rg.mesh_key, rg.epoch)
             fut._wave_key = key
@@ -649,6 +748,12 @@ class PPRService:
         P0[:, len(wave.items):] = P0[:, :1]
         return P0, len(seeds)
 
+    def _finish_rejected(self, fut: PPRFuture, code: str) -> None:
+        """Close a rejected future's live trace (if tracing is armed)."""
+        if self.tracer is not None and fut._trace is not None:
+            self.tracer.finish(fut._trace, outcome="rejected", code=code)
+            fut._trace = None
+
     # ------------------------------------------------------------------
     def _run_wave(self, wave: Wave) -> List[Recommendation]:
         graph_name, pkey, mesh_key, epoch = wave.key
@@ -674,6 +779,7 @@ class PPRService:
                         f"{q.deadline:.4f}s deadline — dropped at wave "
                         f"launch rather than served late",
                         code="deadline-exceeded"))
+                    self._finish_rejected(fut, "deadline-exceeded")
                 else:
                     live.append(fut)
                     live_enq.append(enq)
@@ -683,6 +789,22 @@ class PPRService:
 
         self._wave_counter += 1
         wave_id = self._wave_counter
+
+        tracer = self.tracer
+        iterate_info: Dict[str, object] = {}
+        wtr = None
+        # under head-sampling, a wave trace is kept iff any occupant was
+        # sampled — an unsampled wave must not leak whole-traffic traces
+        if tracer is not None and (
+                self._trace_rate >= 1.0
+                or any(f._trace is not None for f in wave.items)):
+            wtr = tracer.start(
+                "wave", "wave", t=t0, wave_id=wave_id, graph=graph_name,
+                precision=pkey, mesh=mesh_key, full=wave.full,
+                n_queries=len(wave.items),
+                occupancy=len(wave.items) / self.kappa,
+                member_traces=[f._trace.trace_id for f in wave.items
+                               if f._trace is not None])
         for enq in wave.enqueued_at:
             self.telemetry.record_admission_wait(max(0.0, t0 - enq))
 
@@ -693,7 +815,9 @@ class PPRService:
         plan = engine.plan(rg, fmt, alpha=self.alpha,
                            iterations=self.iterations,
                            convergence=self.convergence,
-                           topk_tile=self.topk_tile)
+                           topk_tile=self.topk_tile,
+                           trace_hook=iterate_info.update
+                           if tracer is not None else None)
 
         queries = [fut.query for fut in wave.items]
         verts = [int(q.vertex) for q in queries]
@@ -711,6 +835,7 @@ class PPRService:
         if iters_run < self.iterations:
             self.telemetry.record_early_exit(self.iterations - iters_run)
         self.telemetry.record_wave_iterations(iters_run)
+        warm_saved = 0
         if self._warm is not None:
             P_host = P.cpu().numpy()       # one copy of the state a wave
             if plan.fixed:
@@ -763,10 +888,30 @@ class PPRService:
                                        pkey, mesh_key=mesh_key,
                                        engine=plan.engine, graph=graph_name)
         self._shadow_feedback(wave, rg, fmt, pkey, P)
+        if wtr is not None:
+            wtr.span("plan", t0).end(t_plan, engine=plan.engine)
+            wtr.span("warm_start", t_plan).end(
+                t_warm, warm_cols=warm_cols, iterations_saved=warm_saved)
+            wtr.span("iterate", t_warm).end(t_iter, **iterate_info)
+            wtr.span("topk", t_iter).end(t_topk, k_max=k_max)
+            wtr.span("resolve", t_topk).end(t_resolve)
+            tracer.finish(wtr, latency_s=latency, engine=plan.engine)
         # resolve futures last: a waiter must observe the wave's completed
-        # accounting, shadow feedback included
+        # accounting (counters, traces, cache fills, shadow feedback)
         for col, fut in enumerate(wave.items):
             fut._resolve(recs[col])
+            if tracer is not None and fut._trace is not None:
+                tr = fut._trace
+                enq = (wave.enqueued_at[col]
+                       if col < len(wave.enqueued_at) else t0)
+                tr.span("admission_wait", enq).end(t0)
+                tr.span("wave_execute", t0, wave_id=wave_id,
+                        engine=plan.engine,
+                        **iterate_info).end(self.time_fn())
+                tracer.finish(tr, outcome="resolved", source="wave",
+                              precision=pkey,
+                              wave_trace=wtr.trace_id if wtr else None)
+                fut._trace = None
         return recs
 
     # ------------------------------------------------------------------

@@ -360,6 +360,130 @@ def test_cuda_auto_wave_fused_equals_single(cuda):
     assert ls == 0 and lf >= 30 + 10 and lf % 10 == 0
 
 
+# ---------------------------------------------------------------------------
+# tracing and the HTTP tier: deepened κ, traced waves, served answers
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("fmt", [None, tfp.Q1_25], ids=["f32", "Q1.25"])
+@pytest.mark.parametrize("k", [32, 64])
+@pytest.mark.parametrize("graph", ["prime", "hub"])
+def test_cuda_fused_iteration_at_deepened_kappa_matches_plain(cuda, fmt, k, graph):
+    """K = 32 and 64, the κ the admission controller deepens to: fixed point
+    raw-bit equal to the plain version; float32 P_next within rtol 1e-5 +
+    atol 1e-9 (and 1e-6) of the plain version run in float64, and the
+    residual rows within rtol 1e-4 of the kernel's own P_next's."""
+    g = _prime_graph(seed=4) if graph == "prime" else _hub_graph()
+    args, kw = _fused_operands(g, fmt, k, p_scale=1 / 100, vm_stride=7)
+    P_k, res_k = tfused.fused_ppr_iteration(*(a.to(cuda) for a in args), **kw)
+    if fmt is not None:
+        _check_fused(P_k, res_k, *tfused.fused_ppr_iteration(*args, **kw), True)
+        return
+    topo, val, dang, vm, p = args
+    P64, _ = tfused.fused_ppr_plain(topo, val.double(), dang, vm.double(), p.double(),
+                                    **kw)
+    P_k = P_k.cpu().double()
+    torch.testing.assert_close(P_k, P64, rtol=1e-5, atol=1e-9)
+    assert float((P_k - P64).abs().max()) <= 1e-6
+    d = (P_k - p.double()).abs()
+    own = torch.stack([d.sum(0), d.amax(0), (d * d).sum(0)])
+    torch.testing.assert_close(res_k.cpu().double()[[0, 2]], own[[0, 2]],
+                               rtol=1e-4, atol=0.0)
+    assert float((res_k.cpu().double()[1] - own[1]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("tracing", [True, 0.5], ids=["traced", "sampled"])
+def test_cuda_traced_fused_wave_equals_untraced(cuda, tracing):
+    """A traced fused wave on the card (early exit armed, so the iterate
+    span reads the kernel's residual) serves the answers and iteration
+    counts of an untraced one, and its wave traces carry the five spans."""
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+
+    g = erdos_renyi(3000, 30000, seed=2)
+    verts = np.random.default_rng(9).choice(g.num_vertices, 40, replace=False)
+    queries = [PPRQuery("g", int(v), precision=(None, 26)[i % 2])
+               for i, v in enumerate(verts)]
+    out = {}
+    for label, t in (("untraced", False), ("traced", tracing)):
+        svc = PPRService(kappa=16, iterations=30, early_exit=True, tracing=t,
+                         device=cuda)
+        svc.register_graph("g", g, formats=[26], engine="fused")
+        before = tfused.fused_ppr_iteration.launches
+        recs = svc.run_batch(queries)
+        torch.cuda.synchronize()
+        out[label] = (recs, svc, tfused.fused_ppr_iteration.launches - before)
+    (rt, st, lt), (ru, su, lu) = out["traced"], out["untraced"]
+    assert lt == lu > 0
+    for a, b in zip(rt, ru):
+        assert a.precision == b.precision
+        assert np.array_equal(a.vertices, b.vertices)
+        if a.precision == "f32":
+            assert float(np.abs(a.scores - b.scores).max()) <= 1e-6
+        else:
+            assert np.array_equal(a.scores, b.scores)
+    for key in ("waves", "early_exit_waves", "iterations_saved"):
+        assert st.telemetry_summary()[key] == su.telemetry_summary()[key]
+    waves = [t for t in st.recorder.traces() if t["kind"] == "wave"]
+    assert waves
+    for t in waves:
+        assert [c["name"] for c in t["root"]["children"]] == [
+            "plan", "warm_start", "iterate", "topk", "resolve"]
+        it = t["root"]["children"][2]["attrs"]
+        assert set(it) == {"iterations_run", "budget", "early_exit", "residual"}
+        assert it["budget"] == 30 and it["residual"] is not None
+
+
+def test_cuda_http_answers_equal_run_batch(cuda):
+    """Requests served by ``PPRHTTPServer`` over a fused service on the card
+    (waves on the pump's worker thread, κ deepened to 32 and 64 by a tight
+    admission config) equal ``run_batch`` on a second fused service at the
+    precision each response names; nothing answers 500."""
+    import asyncio
+
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+    from repro_torch.ppr_serving import http
+
+    g = erdos_renyi(3000, 30000, seed=2)
+    svc = PPRService(kappa=16, iterations=10, max_wait=0.005, tracing=0.5, slo=True,
+                     device=cuda)
+    svc.register_graph("g", g, formats=[26], engine="fused")
+    rng = np.random.default_rng(3)
+    bodies = [{"graph": "g", "vertex": int(v), "k": 10, "precision": (26, None, "auto")[i % 3]}
+              for i, v in enumerate(rng.integers(0, g.num_vertices, 96))]
+    server = http.PPRHTTPServer(svc, admission=http.AdmissionConfig(
+        high_water=200, low_water=4, deepen_water=4, kappa_max=64))
+    before = tfused.fused_ppr_iteration.launches
+
+    async def scenario():
+        await server.transport.start()          # the pump held back: κ deepens
+        host, port = server.host, server.port
+        task = asyncio.gather(*[http.http_request(host, port, "POST", "/v1/ppr", b)
+                                for b in bodies])
+        while svc.queue_depth() < len(bodies):
+            await asyncio.sleep(0.002)
+        server.pump.start()
+        res = await asyncio.wait_for(task, 120)
+        await server.stop()
+        return res
+
+    res = asyncio.run(scenario())
+    assert tfused.fused_ppr_iteration.launches > before
+    assert [r[0] for r in res] == [200] * len(bodies)
+    assert 64 in [e["kappa"] for e in svc.recorder.events_of_kind("kappa")]
+    mirror = PPRService(kappa=16, iterations=10, device=cuda)
+    mirror.register_graph("g", g, formats=[26], engine="fused")
+    recs = mirror.run_batch([PPRQuery("g", b["vertex"], k=10,
+                                      precision=None if r[2]["precision"] == "f32"
+                                      else r[2]["precision"])
+                             for b, r in zip(bodies, res)])
+    for (_, _, p), rec in zip(res, recs):
+        assert p["precision"] == rec.precision
+        scores = np.asarray([x["score"] for x in p["recommendations"]])
+        if rec.precision == "f32":
+            assert float(np.abs(scores - rec.scores).max()) <= 1e-6
+        else:
+            assert [x["vertex"] for x in p["recommendations"]] == rec.vertices.tolist()
+            assert np.array_equal(scores, rec.scores)
+
+
 # flash attention: float32 to 1e-4 (the kernel and the plain version sum in
 # other orders, both in float32); bfloat16 to one bf16 ulp, rtol 2^-7 with
 # atol 1e-3 near 0 (both compute in float32 from the same bf16 inputs and

@@ -6,13 +6,26 @@ pl_1e5 cut to |V| = 2,000), the port with ``--device cpu``.  Their standard
 output is compared line by line with the timing fields masked: the accuracy
 block against the float64 oracle exactly in Q1.25 (fixed point is bit-exact)
 and within 1e-5 in ``--float``; ``--serve``'s count lines; every
-``--replay-deltas`` round line and telemetry line.  The flags whose slice is
-not ported yet raise ``NotImplementedError`` naming it, before any graph is
-built.
+``--replay-deltas`` round line and telemetry line; the flight recorder's
+dump under ``--dump-traces`` (``--trace``, ``--trace-sample``), span
+durations, event times and latencies masked.  ``--http`` runs as a
+subprocess of each package on 127.0.0.1, with ``--slo`` and
+``--otlp-endpoint`` pointed at a stdlib collector: the banners, the answers
+and the closing ``otlp:`` line agree.  ``--shards N>1`` raises
+``NotImplementedError`` naming its slice, before any graph is built.
 """
+import json
+import os
 import re
+import signal
+import subprocess
 import sys
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -26,6 +39,9 @@ _TIMES = [
     (re.compile(r"in \d+\.\d+s \(\d+\.\d+ req/s"), "in <s>s (<r> req/s"),
     (re.compile(r"apply \d+\.\d+ ms"), "apply <ms> ms"),
     (re.compile(r"q in \d+\.\d+s"), "q in <s>s"),
+    (re.compile(r" +\d+\.\d+ ms"), " <ms> ms"),
+    (re.compile(r"t=\d+\.\d+s "), "t=<s>s "),
+    (re.compile(r"latency_s=[^,\]]+"), "latency_s=<s>"),
 ]
 
 
@@ -99,17 +115,135 @@ def test_replay_deltas_lines_match_reference(monkeypatch, capsys, argv):
     assert "prefetch_issued" in "\n".join(got)
 
 
+@pytest.mark.parametrize("argv", [
+    ["--serve", "--trace", "--dump-traces", "3"],
+    ["--serve", "--trace-sample", "0.5", "--dump-traces", "4"],
+    ["--serve", "--float", "--trace-sample", "0.25", "--dump-traces", "2"],
+    ["--serve", "--trace"],
+    ["--replay-deltas", "2", "--dump-traces", "3"],
+], ids=["serve-dump", "sample-0.5", "float-sample-0.25", "trace-no-dump",
+        "replay-dump"])
+def test_trace_flags_print_what_the_reference_prints(monkeypatch, capsys, argv):
+    want = _masked(_reference(monkeypatch, capsys, argv))
+    got = _masked(_port(capsys, argv))
+    assert got == want
+    if "--dump-traces" in argv:
+        n = int(argv[argv.index("--dump-traces") + 1])
+        assert sum(ln.startswith("  trace ") for ln in got) == n
+        assert any(ln.startswith("flight recorder: ") for ln in got)
+
+
+class _Collector:
+    """A stdlib OTLP/HTTP collector on 127.0.0.1: counts the spans and
+    metric payloads POSTed to it."""
+
+    def __init__(self):
+        self.spans, self.metric_posts = 0, 0
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                if self.path.endswith("/v1/traces"):
+                    outer.spans += sum(len(ss["spans"])
+                                       for rs in body["resourceSpans"]
+                                       for ss in rs["scopeSpans"])
+                else:
+                    outer.metric_posts += 1
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def _http_run(module, extra):
+    """``ppr_run --http 0`` as a subprocess: read the banner, POST four
+    queries and GET /v1/slo, then SIGINT.  Returns the answers, the SLO
+    status code, the collector's span count and the process's stdout."""
+    import asyncio
+
+    from repro_torch.ppr_serving.http import http_request
+
+    col = _Collector()
+    src = Path(__file__).resolve().parents[1] / "src"
+    cmd = [sys.executable, "-m", module, "--http", "0", "--scale", "0.01",
+           "--bits", "20", "--trace", "--slo", "--otlp-endpoint", col.url] + extra
+    env = dict(os.environ, PYTHONPATH=str(src), JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    try:
+        head = []
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            line = proc.stdout.readline()
+            assert line, proc.stderr.read()
+            head.append(line.rstrip("\n"))
+            if "GET  /v1/debug/traces" in line:
+                break
+        port = int(re.search(r"http://127\.0\.0\.1:(\d+)", "\n".join(head)).group(1))
+
+        async def traffic():
+            out = []
+            for v, p in ((3, 20), (5, None), (3, 20), (7, "auto")):
+                status, _, body = await http_request(
+                    "127.0.0.1", port, "POST", "/v1/ppr",
+                    {"graph": "pl_1e5", "vertex": v, "k": 5, "precision": p})
+                out.append((status, body))
+            slo_status, _, _ = await http_request("127.0.0.1", port, "GET", "/v1/slo")
+            return out, slo_status
+
+        answers, slo_status = asyncio.run(traffic())
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=120)
+        # the same buffered reader as the banner: it may hold lines already
+        rest, err = proc.stdout.read(), proc.stderr.read()
+        return (answers, slo_status, col.spans, proc.returncode,
+                head + rest.splitlines(), err)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        with proc:                        # closes the pipes, reaps the process
+            pass
+        col.close()
+
+
+def test_http_mode_serves_like_the_reference():
+    want = _http_run("repro.launch.ppr_run", [])
+    got = _http_run("repro_torch.launch.ppr_run", ["--device", "cpu"])
+    answers, slo_status, spans, rc, out, err = got
+    assert rc == 0, err
+    assert slo_status == want[1] == 200
+    assert [a[0] for a in answers] == [a[0] for a in want[0]] == [200] * 4
+    for (_, g), (_, w) in zip(answers, want[0]):
+        assert (g["precision"], g["source"]) == (w["precision"], w["source"])
+        assert [r["vertex"] for r in g["recommendations"]] == \
+            [r["vertex"] for r in w["recommendations"]]
+        np.testing.assert_allclose([r["score"] for r in g["recommendations"]],
+                                   [r["score"] for r in w["recommendations"]],
+                                   rtol=0, atol=0 if g["precision"] != "f32" else 1e-6)
+    port_re = (re.compile(r"127\.0\.0\.1:\d+"), "127.0.0.1:<port>")
+    mask = lambda lines: [port_re[0].sub(port_re[1], ln) for ln in lines
+                          if not ln.startswith("otlp:")]
+    assert mask(out) == mask(want[4])
+    otlp, = [ln for ln in out if ln.startswith("otlp:")]
+    assert otlp.endswith(", 0 dropped, 0 failed sends")
+    assert int(otlp.split()[1]) == spans == want[2] > 0
+
+
 @pytest.mark.parametrize("argv,slice_name", [
-    (["--http", "0"], "HTTP"),
     (["--serve", "--shards", "4"], "multi-GPU"),
-    (["--serve", "--trace"], "observability"),
-    (["--serve", "--dump-traces", "3"], "observability"),
-    (["--serve", "--trace-sample", "0.5"], "observability"),
-    (["--http", "0", "--slo"], "HTTP"),
-    (["--slo"], "observability"),
-    (["--otlp-endpoint", "http://localhost:4318"], "observability"),
-], ids=["http", "shards", "trace", "dump-traces", "trace-sample", "http-slo", "slo",
-        "otlp"])
+], ids=["shards"])
 def test_unported_flags_raise_before_any_graph(monkeypatch, argv, slice_name):
     def no_graph(*a, **kw):
         raise AssertionError("a graph was built before the flag was refused")

@@ -269,14 +269,6 @@ def test_service_on_cuda_raises_without_a_gpu():
         FusedRegisteredGraph("g", _port(_graph(v=50, e=100)))
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(tracing=True), dict(slo=True), dict(otlp=object()),
-], ids=lambda kw: next(iter(kw)))
-def test_later_slice_options_raise_not_implemented(kwargs):
-    with pytest.raises(NotImplementedError, match="slice"):
-        TService(device=CPU, **kwargs)
-
-
 def test_later_slice_calls_raise_not_implemented():
     g = _port(_graph(v=60, e=200))
     svc = TService(device=CPU)
