@@ -101,7 +101,31 @@ exits non-zero.  It prints, in order:
    p50/p99, waves and occupancy; (d) ``ppr_run --http 0 --trace --slo
    --otlp-endpoint`` (16 POSTs, ``/v1/slo``, SIGINT: exit 0, 0 failed
    sends) and ``ppr_run --serve --dump-traces 3`` as subprocesses;
-10. a ``{"kernels": [...]}`` JSON line, then the card line, then the
+10. mesh-sharded serving, after phase 9 (``launch.mesh.make_mesh``: on a
+   one-card host every shard sits on ``cuda:0``, so no copy crosses cards):
+   (a) ``coo_spmv_kernel`` over every shard stream of gnp_2e5 and pl_2e5 at
+   S = 3, 4, 8, K = 16, f32 and Q1.25, each against its plain version
+   (Q1.25 raw bits; f32 at phase 2's limits to the plain version in
+   float64), the gathered rows against the whole graph's plain SpMV, each
+   shard's device ms beside its byte bound, and a zero-edge shard over
+   memory left full of ones; (b) phase 3's traffic through a 4-shard meshed
+   ``PPRService``, a fused and a single one on both graphs: Q1.25 raw-equal
+   to both, f32 within 1e-6 of the fused family's, the oracle's top-10
+   overlaps equal, ``waves_mesh:shardx4``, the meshed and fused passes
+   timed in turns (wave p50, queries/s) and a meshed pass's host time split
+   into per-shard calls, gather, dangling mass and combine; (c) early exit
+   on pl_2e5 (Q1.19, budget 120): the same iterations and states as fused;
+   (d) a ``random_delta(1024, 512)`` and a growth of 256 vertices on the
+   meshed gnp_2e5: buckets, streams and answers equal a fresh
+   registration's, ``apply_delta`` ms; (e) 8 ``precision="auto"`` waves of
+   16 on the mesh against a fused service: precisions, controller, answers
+   and shadow scores equal, each shadow reference through
+   ``sharded_float``; (f) ``PPR_PAPER_1M`` (2^20 vertices, 2^24 edges) on
+   the mesh against the fused family (v_tile 8,192) on the same graph:
+   states and top-K raw-equal, wave p50 each, stream bytes; (g) ``ppr_run
+   --serve --shards 4`` as a subprocess, its count lines equal to phase
+   8's ``--serve``;
+11. a ``{"kernels": [...]}`` JSON line, then the card line, then the
    ``{"ok": true, ...}`` line last.
 
 Everything too long for the end of the output goes to
@@ -2116,6 +2140,571 @@ def observability_phase(torch, np, graphs, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: mesh-sharded serving
+# ---------------------------------------------------------------------------
+SHARD_COUNTS = (3, 4, 8)        # 3: a short last shard
+MESH_SHARDS = 4
+MESH_PASSES = 5
+
+
+def _shard_bound_ms(np, st, k):
+    """The bytes one shard's call must move over HBM's rate: its stream
+    (col and val, 4 + 4 B an edge, row_ptr, nz_rows and the slice schedule),
+    each P row it reads once (its distinct src) and its output rows once."""
+    srcs = int(np.unique(st.col).size)
+    return _bound_ms(st.num_edges * 8 + (st.num_rows + 1) * 4 + st.nz_rows.size * 4
+                     + (st.num_slices + 1) * 4 + srcs * k * 4 + st.num_rows * k * 4)
+
+
+def _check_shard_out(torch, what, out, topo, val, p, fmt) -> float:
+    """A shard's kernel output against its plain version: raw bits equal, or
+    float32 within rtol 1e-5 + atol 1e-9 and 1e-6 of the plain version run
+    in float64.  Returns the max abs error."""
+    from repro_torch.kernels.coo_spmv import coo_spmv_plain
+
+    if fmt is not None:
+        if not torch.equal(out, coo_spmv_plain(topo, val, p, frac_bits=fmt.frac_bits)):
+            _fail(f"{what}: raw bits differ from the plain version")
+        return 0.0
+    want = coo_spmv_plain(topo, val.double(), p.double())
+    err = float((out.double() - want).abs().max()) if out.numel() else 0.0
+    if not torch.allclose(out.double(), want, rtol=1e-5, atol=1e-9) or err > 1e-6:
+        _fail(f"{what}: max abs err {err} from the plain version in float64")
+    return err
+
+
+def _shard_kernels(torch, np, graphs, dev, card):
+    """(a) ``coo_spmv_kernel`` over every shard stream of gnp_2e5 and pl_2e5
+    at S ∈ SHARD_COUNTS, K = 16, f32 and Q1.25: each shard against its plain
+    version, the gathered rows against the whole graph's plain SpMV, each
+    shard's device ms beside its byte bound; one synthetic shard with rows
+    and no edge over memory left full of ones; the largest shard at S = 4
+    timed in full for the kernels line."""
+    from repro_torch.core.fixed_point import Q1_25
+    from repro_torch.core.spmv import (partition_edges_by_dst, sharded_vertex_layout,
+                                       spmv_fixed, spmv_float)
+    from repro_torch.kernels.coo_spmv import coo_spmv_kernel, coo_spmv_plain
+    from repro_torch.kernels.dst_stream import build_dst_stream
+
+    shards, rows = [], []
+    for gname, g in graphs.items():
+        v = g.num_vertices
+        x, y = torch.as_tensor(g.x, device=dev), torch.as_tensor(g.y, device=dev)
+        p_np, _ = _inputs(np, g, None, seed=100 + len(gname))
+        p32 = torch.as_tensor(p_np, device=dev)
+        p_of = {None: p32, Q1_25: Q1_25.from_float(p32)}
+        whole = {None: spmv_float(x, y, torch.as_tensor(g.val, device=dev).double(),
+                                  p32.double(), v),
+                 Q1_25: spmv_fixed(x, y, torch.as_tensor(g.quantized_val(Q1_25).view(np.int32),
+                                                         device=dev), p_of[Q1_25], v, Q1_25)}
+        for s in SHARD_COUNTS:
+            v_local, _ = sharded_vertex_layout(v, s)
+            hx, hy, hv = (a.reshape(s, -1) for a in partition_edges_by_dst(g.x, g.y, g.val, v, s))
+            streams = [build_dst_stream((hx[i], hy[i], hv[i], v_local)) for i in range(s)]
+            for fmt in (None, Q1_25):
+                dom = "f32" if fmt is None else fmt.name
+                p, fb = p_of[fmt], None if fmt is None else fmt.frac_bits
+                parts = []
+                for i, st in enumerate(streams):
+                    topo, val = st.topology(dev), st.values(dev, fmt)
+                    call = (lambda topo=topo, val=val:
+                            coo_spmv_kernel(topo, val, p, frac_bits=fb))
+                    out = call()
+                    what = f"coo_spmv {gname} shard {i}/{s} {dom}"
+                    err = _check_shard_out(torch, what, out, topo, val, p, fmt)
+                    parts.append(out)
+                    entry = dict(graph=gname, shards=s, shard=i, domain=dom,
+                                 edges=st.num_edges, rows=st.num_rows,
+                                 slice_edges=st.slice_edges, ctas=st.num_ctas,
+                                 max_abs_err=err, bound_ms=_shard_bound_ms(np, st, K),
+                                 device_ms=_time_ms(torch, call, hide_host=True))
+                    shards.append(entry)
+                    if s == MESH_SHARDS and st.num_edges == max(t.num_edges for t in streams):
+                        row = dict(kernel="coo_spmv", graph=gname, domain=dom,
+                                   shard=f"{i} of {s}", max_abs_err=err,
+                                   bound_ms=entry["bound_ms"],
+                                   unpadded_bound_ms=entry["bound_ms"])
+                        _timings(torch, row, call,
+                                 lambda topo=topo, val=val: coo_spmv_plain(
+                                     topo, val, p, frac_bits=fb))
+                        if fmt is None:     # one torch.sparse.mm on a CSR copy of the shard
+                            X = torch.sparse_csr_tensor(
+                                topo.row_ptr.long(), topo.col.long(), val, (v_local, v))
+                            _library_timings(torch, row, lambda X=X: torch.sparse.mm(X, p))
+                            lib_err = float((torch.sparse.mm(X, p) - out).abs().max())
+                            if lib_err > 1e-6:
+                                _fail(f"{what} vs torch.sparse.mm: {lib_err}")
+                        rows.append(row)
+                got = torch.cat(parts)[:v]
+                if fmt is None:
+                    err = float((got.double() - whole[None]).abs().max())
+                    if not torch.allclose(got.double(), whole[None], rtol=1e-5, atol=1e-9):
+                        _fail(f"coo_spmv {gname} S={s} f32: gathered rows {err} from the "
+                              f"whole graph's plain SpMV in float64")
+                elif not torch.equal(got, whole[Q1_25]):
+                    _fail(f"coo_spmv {gname} S={s} {dom}: gathered rows differ from the "
+                          f"whole graph's plain SpMV")
+            sh = [e for e in shards if e["graph"] == gname and e["shards"] == s]
+            print(f"[shards] {gname} S={s}: edges per shard "
+                  f"{[e['edges'] for e in sh if e['domain'] == 'f32']}; device ms "
+                  f"f32 {[round(e['device_ms'], 4) for e in sh if e['domain'] == 'f32']}, "
+                  f"Q1.25 {[round(e['device_ms'], 4) for e in sh if e['domain'] != 'f32']}; "
+                  f"bound ms {[round(e['bound_ms'], 4) for e in sh if e['domain'] == 'f32']}; "
+                  f"each shard = its plain version, the gathered rows = the whole "
+                  f"graph's ({card})")
+    # a shard with 50,000 rows and no edge, over memory left full of ones
+    st = build_dst_stream((np.zeros(0, np.int32), np.zeros(0, np.int32),
+                           np.zeros(0, np.float32), 50_000))
+    for fmt in (None, Q1_25):
+        p = torch.ones((16, K), device=dev,
+                       dtype=torch.float32 if fmt is None else torch.int32)
+        junk = torch.full((50_000 * K,), -1, dtype=torch.int32, device=dev)
+        del junk
+        topo, val = st.topology(dev), st.values(dev, fmt)
+        out = coo_spmv_kernel(topo, val, p, frac_bits=None if fmt is None else fmt.frac_bits)
+        torch.cuda.synchronize()
+        if out.shape != (50_000, K) or out.any():
+            _fail(f"coo_spmv on a zero-edge shard ({fmt}): not all rows zero")
+    print(f"[shards] a zero-edge shard of 50,000 rows (1 slice, 1 CTA): every row 0, "
+          f"f32 and Q1.25")
+    return shards, rows
+
+
+def _in_turns(torch, runs, passes):
+    """Each run of ``runs`` once to warm up, then ``passes`` passes in turns
+    (the order flipped every pass); seconds a pass, by name."""
+    for run in runs.values():
+        run()
+    secs = {name: [] for name in runs}
+    names = list(runs)
+    for i in range(passes):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            runs[name]()
+            secs[name].append(time.perf_counter() - t0)
+    return secs
+
+
+def _host_split(torch, run):
+    """Host ms of one served pass of a sharded service, split: the per-shard
+    ``coo_spmv_kernel`` calls, the gather (``core.spmv._gather_shards``),
+    the dangling mass and the combine (``core.ppr``'s own), each without a
+    synchronize; and the pass's calls of each."""
+    import repro_torch.core.ppr as core_ppr
+    import repro_torch.core.spmv as core_spmv
+    import repro_torch.kernels.coo_spmv as kmod
+
+    hooks = {"shard_calls": (kmod, "coo_spmv_kernel"),
+             "gather": (core_spmv, "_gather_shards"),
+             "dangling": (core_ppr, "_fixed_dangling_mass"),
+             "combine_fixed": (core_ppr, "_fixed_combine"),
+             "combine_float": (core_ppr, "_float_combine")}
+    spent = {k: [0.0, 0] for k in hooks}
+    inner = {k: getattr(mod, attr) for k, (mod, attr) in hooks.items()}
+
+    def clocked(key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner[key](*a, **kw)
+            spent[key][0] += (time.perf_counter() - t0) * 1e3
+            spent[key][1] += 1
+            return out
+        call.launches = 0      # the kernel wrapper counts on the name it is bound to
+        return call
+
+    for key, (mod, attr) in hooks.items():
+        setattr(mod, attr, clocked(key))
+    try:
+        t0 = time.perf_counter()
+        run()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for key, (mod, attr) in hooks.items():
+            setattr(mod, attr, inner[key])
+    return dict(pass_ms=total, **{k: dict(ms=v[0], calls=v[1]) for k, v in spent.items()})
+
+
+def _sharded_service(torch, np, graphs, dev, card):
+    """(b) phase 3's traffic through a 4-shard meshed service, a fused and a
+    single one on gnp_2e5 and pl_2e5: answers held to each other and to the
+    scipy oracle's top-10 as phase 3 holds the fused family's, telemetry
+    under the mesh's key, the passes of the meshed and the fused service
+    timed in turns, and the host time of a meshed pass split.  The coo_spmv
+    launches counted are those of the meshed services' served passes."""
+    from repro_torch.graphs import ppr_reference
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+
+    mesh = make_mesh((MESH_SHARDS,), ("shard",), device=dev)
+    one = len(set(mesh.axis_devices("shard"))) == 1
+    print(f"[mesh] {MESH_SHARDS}-shard mesh on {mesh.placement}"
+          f"{': every shard on one device, so no copy crosses cards' if one else ''} ({card})")
+    out, launches = {}, 0
+    for gname, g in graphs.items():
+        rng = np.random.default_rng(2020)
+        verts = rng.choice(g.num_vertices, 96, replace=False)
+        queries = [(int(v), 26) for v in verts[:64]] + [(int(v), None) for v in verts[64:]]
+        svcs, runs = {}, {}
+        for name, kw in (("sharded", dict(mesh=mesh)), ("fused", dict(engine="fused")),
+                         ("single", dict(engine="single"))):
+            svc = PPRService(kappa=K, iterations=10, cache_capacity=0, device=dev)
+            svc.register_graph("g", g, formats=[26], **kw)
+            svcs[name] = svc
+            runs[name] = (lambda svc=svc: (_serve_batch(svc, PPRQuery, queries),
+                                          torch.cuda.synchronize())[0])
+        reset_launch_counts()
+        answers = {"sharded": runs["sharded"]()}
+        counts = launch_counts()
+        if counts["coo_spmv"] == 0 or counts["fused_ppr_iteration"]:
+            _fail(f"the meshed service on {gname} launched {counts}: coo_spmv must run "
+                  f"and fused_ppr_iteration must not")
+        launches += counts["coo_spmv"]
+        answers["fused"], answers["single"] = runs["fused"](), runs["single"]()
+        agree = _same_answers(np, f"{gname} sharded vs fused", answers["sharded"],
+                              answers["fused"])
+        _same_answers(np, f"{gname} sharded vs single", [
+            a for a in answers["sharded"] if a.precision != "f32"],
+            [a for a in answers["single"] if a.precision != "f32"])
+        pers = np.asarray([v for v, _ in queries[:4]] + [v for v, _ in queries[-4:]])
+        ref = ppr_reference(g, pers, alpha=ALPHA, iterations=100)
+        overlaps = {}
+        for name in ("sharded", "fused"):
+            recs = answers[name]
+            ov = []
+            for j, v in enumerate(pers):
+                col = ref[:, j].copy()
+                col[v] = -np.inf
+                top = set(np.argsort(-col, kind="stable")[:10].tolist())
+                rec = recs[j] if j < 4 else recs[len(recs) - 8 + j]
+                ov.append(len(top & set(rec.vertices.tolist())))
+            overlaps[name] = ov
+        if overlaps["sharded"] != overlaps["fused"]:
+            _fail(f"{gname}: oracle top-10 overlaps {overlaps}")
+        for name in ("sharded", "fused"):
+            svcs[name].telemetry.reset()
+        secs = _in_turns(torch, {k: runs[k] for k in ("sharded", "fused")}, MESH_PASSES)
+        summ = {k: svcs[k].telemetry_summary() for k in ("sharded", "fused")}
+        key = f"waves_mesh:shardx{MESH_SHARDS}"
+        if summ["sharded"].get(key) != summ["sharded"]["waves"] or not summ["sharded"]["waves"]:
+            _fail(f"{gname}: telemetry {key} = {summ['sharded'].get(key)}, waves "
+                  f"{summ['sharded']['waves']}")
+        split = _host_split(torch, runs["sharded"])
+        busy = _busy_profile(torch, runs["sharded"])
+        if not busy["device_events"]:
+            _fail("torch.profiler saw no device event in the meshed passes")
+        waves = summ["sharded"]["waves"] / (MESH_PASSES + 1)
+        r = dict(waves_per_pass=waves, float_lists_equal=agree, oracle_overlaps=overlaps,
+                 host_split=split, profile=busy, launches=counts["coo_spmv"])
+        for name in ("sharded", "fused"):
+            r[name] = dict(wave_p50_ms=summ[name]["wave_latency_p50_s"] * 1e3,
+                           wave_p95_ms=summ[name]["wave_latency_p95_s"] * 1e3,
+                           queries_per_s=96 * MESH_PASSES / sum(secs[name]),
+                           pass_s=secs[name])
+        out[gname] = r
+        per_wave = {k: round(v["ms"] / waves, 4) for k, v in split.items() if k != "pass_ms"}
+        print(f"[sharded] {gname}: 96 queries (64 Q1.25 + 32 f32) on the mesh = fused "
+              f"(Q1.25 raw bits, f32 within 1e-6, float lists equal {agree}/32) = single "
+              f"(Q1.25); oracle top-10 overlaps {overlaps['sharded']}; {key} "
+              f"{summ['sharded'][key]}; coo_spmv launches {counts['coo_spmv']} a pass "
+              f"({counts['coo_spmv'] / waves:g} a wave)")
+        print(f"[sharded] {gname} over {MESH_PASSES} passes in turns: wave p50/p95 sharded "
+              f"{r['sharded']['wave_p50_ms']:.3f}/{r['sharded']['wave_p95_ms']:.3f} ms, "
+              f"fused {r['fused']['wave_p50_ms']:.3f}/{r['fused']['wave_p95_ms']:.3f} ms; "
+              f"queries/s sharded {r['sharded']['queries_per_s']:.1f}, fused "
+              f"{r['fused']['queries_per_s']:.1f}; host ms a wave, sharded pass "
+              f"{split['pass_ms'] / waves:.3f}: {json.dumps(per_wave)} ({card})")
+        print(f"[sharded] {gname} profile over {busy['passes']} meshed passes: device busy "
+              f"{100 * busy['device_busy_share']:.1f}% of {busy['window_ms']:.2f} ms; by "
+              f"name {json.dumps({k: round(v, 3) for k, v in busy['device_ms_by_name'].items()})}")
+    return out, launches
+
+
+def _sharded_early_exit(torch, np, g, dev, card, budget=120, bits=20):
+    """(c) pl_2e5, Q1.19, early exit, budget 120: the sharded and the fused
+    plan stop after the same iterations with the same states."""
+    from repro_torch.autotune import ConvergencePolicy
+    from repro_torch.core.fixed_point import format_for_bits
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.ppr_serving import ShardedRegisteredGraph, get_engine
+    from repro_torch.ppr_serving.engine.fused import FusedRegisteredGraph
+
+    fmt = format_for_bits(bits)
+    pers = torch.as_tensor(np.random.default_rng(7).choice(g.num_vertices, K, replace=False),
+                           device=dev)
+    mesh = make_mesh((MESH_SHARDS,), ("shard",), device=dev)
+    res = {}
+    for key, rg in (("sharded_fixed", ShardedRegisteredGraph("g", g, mesh, device=dev)),
+                    ("fused_fixed", FusedRegisteredGraph("g", g, v_tile=V_TILE, device=dev))):
+        plan = get_engine(key).plan(rg, fmt, alpha=ALPHA, iterations=budget,
+                                    convergence=ConvergencePolicy())
+        Vmat = plan.initial(pers)
+        res[key] = plan.iterate(lambda P_: plan.step(Vmat, P_), Vmat)
+    (p_s, it_s), (p_f, it_f) = res["sharded_fixed"], res["fused_fixed"]
+    if it_s != it_f or not torch.equal(p_s, p_f):
+        _fail(f"early exit: sharded {it_s} iterations, fused {it_f}; states equal "
+              f"{torch.equal(p_s, p_f)}")
+    print(f"[sharded] early exit pl_2e5 {fmt.name} budget {budget}: sharded and fused both "
+          f"stop after {it_f} iterations with identical states")
+    return dict(budget=budget, iterations_run=it_f)
+
+
+def _sharded_deltas(torch, np, g, dev, card):
+    """(d) one random_delta(1024, 512) and one growth of 256 vertices on the
+    meshed gnp_2e5: host buckets and streams equal a fresh registration's,
+    answers equal a fresh registration's; ``apply_delta`` ms and its stages."""
+    from repro_torch.core.fixed_point import Q1_25
+    from repro_torch.graph_updates import random_delta
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+
+    mesh = make_mesh((MESH_SHARDS,), ("shard",), device=dev)
+    svc = PPRService(kappa=K, iterations=10, cache_capacity=0, device=dev)
+    rg = svc.register_graph("g", g, formats=[26], mesh=mesh)
+    rng = np.random.default_rng(2022)
+    queries = [(int(v), prec) for v in rng.choice(g.num_vertices, 16, replace=False)
+               for prec in (26, None)]
+    _serve_batch(svc, PPRQuery, queries)
+    out = []
+    for kind, seed in (("random_delta(1024, 512)", 0), ("growth of 256", 11)):
+        rng = np.random.default_rng(seed)
+        delta = (random_delta(rg.source, rng, n_add=1024, n_remove=512) if seed == 0
+                 else random_delta(rg.source, rng, n_add=0, n_remove=0, grow=256))
+        t0 = time.perf_counter()
+        rep = svc.apply_delta("g", delta)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        fresh = PPRService(kappa=K, iterations=10, cache_capacity=0, device=dev)
+        frg = fresh.register_graph("g", rg.source, formats=[26], mesh=mesh)
+        for name in ("_host_x", "_host_y", "_host_val"):
+            if not np.array_equal(getattr(rg, name), getattr(frg, name)):
+                _fail(f"delta {kind}: {name} differs from a fresh registration's")
+        if not np.array_equal(rg._sharded_quant_host[Q1_25], frg._sharded_quant_host[Q1_25]):
+            _fail(f"delta {kind}: the Q1.25 buckets differ from a fresh registration's")
+        for i, (a, b) in enumerate(zip(rg.shard_streams, frg.shard_streams)):
+            for f in DELTA_FIELDS + ("val",):
+                if not np.array_equal(getattr(a, f), getattr(b, f)):
+                    _fail(f"delta {kind}: shard {i}'s stream {f} differs from a fresh build")
+            for key in b._device:
+                if key not in a._device:
+                    _fail(f"delta {kind}: shard {i}'s refreshed stream lacks upload {key}")
+        probe = queries + [(g.num_vertices + 3, 26)] if seed else queries
+        _same_answers(np, f"delta {kind}", _serve_batch(svc, PPRQuery, probe),
+                      _serve_batch(fresh, PPRQuery, probe), float_tol=0.0)
+        stages = {k: round(v * 1e3, 3) for k, v in rg.delta_timings.items()}
+        out.append(dict(kind=kind, apply_ms=ms, report_apply_s=rep["apply_s"],
+                        stages_ms=stages, rebuilt_shards=rg.last_refresh_shards))
+        print(f"[sharded] delta {kind}: apply_delta {ms:.1f} ms ({stages}), shards "
+              f"rebuilt {rg.last_refresh_shards if rg.last_refresh_shards is not None else 'all (re-partition)'}; "
+              f"buckets, streams and answers = a fresh registration's ({card})")
+        del fresh, frg
+    return out
+
+
+def _sharded_auto(torch, np, g, dev, card):
+    """(e) precision="auto" on the mesh: 8 waves of 16 (``AutotuneConfig()``)
+    through a meshed and a fused service: the same resolved precisions,
+    controller states and answers, shadow scores within 1e-4; every shadow
+    reference of the meshed service through the sharded float engine."""
+    from repro_torch.autotune import AutotuneConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.ppr_serving import PPRQuery, PPRService
+
+    traffic = _auto_traffic(np, g, seed=0)[:8]
+    mesh = make_mesh((MESH_SHARDS,), ("shard",), device=dev)
+    runs = {}
+    for name, kw in (("sharded", dict(mesh=mesh)), ("fused", dict(engine="fused"))):
+        svc = PPRService(kappa=K, iterations=10, alpha=ALPHA, autotune=AutotuneConfig(),
+                         cache_capacity=0, device=dev)
+        svc.register_graph("g", g, **kw)
+        engines = []
+        inner = svc._float_reference
+        svc._float_reference = (lambda rg, eng, pers, inner=inner, engines=engines:
+                                engines.append(eng.key) or inner(rg, eng, pers))
+        recs, secs = _timed_waves(torch, svc, PPRQuery, traffic, "auto")
+        runs[name] = dict(svc=svc, recs=recs, secs=secs, engines=engines)
+    s, f = runs["sharded"], runs["fused"]
+    for ws, wf in zip(s["recs"], f["recs"]):
+        if [r.precision for r in ws] != [r.precision for r in wf]:
+            _fail("auto on the mesh: resolved precisions differ from the fused family's")
+        _same_answers(np, "auto sharded vs fused", ws, wf)
+    if s["svc"].controller.summary() != f["svc"].controller.summary():
+        _fail(f"auto on the mesh: controllers differ: {s['svc'].controller.summary()} vs "
+              f"{f['svc'].controller.summary()}")
+    a, b = s["svc"].telemetry.shadow_scores, f["svc"].telemetry.shadow_scores
+    if len(a) != len(b) or not a or np.abs(np.asarray(a) - np.asarray(b)).max() > 1e-4:
+        _fail(f"auto on the mesh: shadow scores {a} vs {b}")
+    if set(s["engines"]) != {"sharded_float"}:
+        _fail(f"auto on the mesh: shadow references ran through {set(s['engines'])}")
+    rung = s["svc"].controller.summary()
+    p50 = {k: statistics.median(r["secs"]) * 1e3 for k, r in runs.items()}
+    print(f"[sharded] auto on the mesh, gnp_2e5, 8 waves of 16: precisions, controller "
+          f"({rung}) and answers = fused; {len(a)} shadow samples within 1e-4, each "
+          f"reference through sharded_float; wave p50 sharded {p50['sharded']:.3f} ms, "
+          f"fused {p50['fused']:.3f} ms ({card})")
+    return dict(shadow_samples=len(a), controller=rung, wave_p50_ms=p50)
+
+
+def _paper_envelope(torch, np, dev, card, waves=5):
+    """(f) ``PPR_PAPER_1M``: 2^20 vertices, 2^24 edges (``erdos_renyi`` from a
+    seed), κ = 16, Q1.25, on a 4-shard mesh against the fused family on the
+    same graph.  The fused family runs at v_tile 8,192: at its serving
+    default of 512 the padded host layout of this graph would hold ~1e9
+    slots.  Both families' plans drive the same waves (initial, iterate,
+    top-K, to a synchronize): states raw-equal, top-K equal, wave p50 each;
+    then one served batch on the mesh equals the fused plan's top-K; the
+    device bytes of the shard streams against the fused stream."""
+    from repro_torch.configs.ppr_paper import PPR_PAPER_1M as W
+    from repro_torch.core.fixed_point import format_for_bits
+    from repro_torch.graphs import erdos_renyi
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.ppr_serving import (PPRQuery, PPRService, ShardedRegisteredGraph,
+                                         get_engine)
+    from repro_torch.ppr_serving.engine.fused import FusedRegisteredGraph
+
+    t0 = time.perf_counter()
+    g = erdos_renyi(W.num_vertices, W.num_edges, seed=1)
+    t_gen = time.perf_counter() - t0
+    fmt = format_for_bits(W.bits)
+    mesh = make_mesh((MESH_SHARDS,), ("shard",), device=dev)
+    t0 = time.perf_counter()
+    srg = ShardedRegisteredGraph("g", g, mesh, device=dev)
+    get_engine("sharded_fixed").prepare(srg, fmt)
+    t_shard = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frg = FusedRegisteredGraph("g", g, v_tile=8192, device=dev)
+    get_engine("fused_fixed").prepare(frg, fmt)
+    t_fused = time.perf_counter() - t0
+
+    def stream_bytes(st):
+        return sum(a.nbytes for a in (st.row_ptr, st.col, st.nz_rows, st.slice_row)) \
+            + 4 * st.num_edges
+    bytes_sharded = sum(stream_bytes(st) for st in srg.shard_streams)
+    bytes_fused = stream_bytes(frg.fused_stream())
+    rng = np.random.default_rng(3)
+    pers_all = [torch.as_tensor(rng.choice(g.num_vertices, W.kappa, replace=False),
+                                device=dev) for _ in range(waves + 1)]
+    plans = {key: get_engine(key).plan(rg, fmt, alpha=W.alpha, iterations=W.iterations)
+             for key, rg in (("sharded_fixed", srg), ("fused_fixed", frg))}
+    secs = {key: [] for key in plans}
+    last = {}
+    for i, pers in enumerate(pers_all):
+        for key in (list(plans) if i % 2 == 0 else list(plans)[::-1]):
+            plan = plans[key]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Vmat = plan.initial(pers)
+            P, _ = plan.iterate(lambda P_: plan.step(Vmat, P_), Vmat)
+            idx, vals = plan.topk(P, 10, pers)
+            idx, vals = idx.cpu(), vals.cpu()
+            if i:
+                secs[key].append(time.perf_counter() - t0)
+            last[key] = (P, idx, vals)
+        (ps, is_, vs), (pf, if_, vf) = last["sharded_fixed"], last["fused_fixed"]
+        if not (torch.equal(ps, pf) and torch.equal(is_, if_) and torch.equal(vs, vf)):
+            _fail(f"PPR_PAPER_1M wave {i}: sharded and fused states or top-K differ")
+    del last, ps, pf
+    svc = PPRService(kappa=W.kappa, iterations=W.iterations, cache_capacity=0, device=dev)
+    svc.register_graph("g", g, formats=[W.bits], mesh=mesh)
+    pers = pers_all[-1]
+    recs = svc.run_batch([PPRQuery("g", int(v), k=10, precision=W.bits) for v in pers.tolist()])
+    for j, rec in enumerate(recs):
+        if not np.array_equal(rec.vertices, if_[j].numpy()) or not np.array_equal(
+                rec.scores, vf[j].numpy().view(np.uint32).astype(np.float64) / fmt.scale):
+            _fail(f"PPR_PAPER_1M: the served answer for vertex {rec.query.vertex} differs "
+                  f"from the fused plan's top-K")
+    p50 = {k: statistics.median(v) * 1e3 for k, v in secs.items()}
+    print(f"[envelope] PPR_PAPER_1M: |V|={g.num_vertices:,} |E|={g.num_edges:,} made in "
+          f"{t_gen:.1f} s; registered: 4 shards {t_shard:.1f} s, fused (v_tile 8192) "
+          f"{t_fused:.1f} s; {waves} Q1.25 waves of {W.kappa} in turns: states and top-K "
+          f"raw-equal, wave p50 sharded {p50['sharded_fixed']:.3f} ms, fused "
+          f"{p50['fused_fixed']:.3f} ms; a served batch on the mesh = the fused top-K; "
+          f"device bytes of the streams (topology + Q1.25 values): shards "
+          f"{bytes_sharded:,}, fused {bytes_fused:,} ({card})")
+    return dict(num_vertices=g.num_vertices, num_edges=g.num_edges, generate_s=t_gen,
+                register_sharded_s=t_shard, register_fused_s=t_fused,
+                wave_p50_ms=p50, wave_s=secs, stream_bytes_sharded=bytes_sharded,
+                stream_bytes_fused=bytes_fused)
+
+
+def _sharded_driver(np, dev, card, serve_stdout, timeout=600):
+    """(g) ``ppr_run --serve --shards 4`` on gnp_2e5 at full size as a
+    subprocess: exit 0, its placement line, and its count lines equal to
+    phase 8's ``--serve`` run's with the layout words mapped (``--serve``
+    prints no accuracy block: it returns top-K, not dense scores)."""
+    import os
+    import re
+
+    from repro_torch.launch.mesh import make_mesh
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.ppr_run", "--graph", "gnp_2e5",
+           "--scale", "1.0", "--bits", "26", "--kappa", str(K), "--requests", "64",
+           "--serve", "--shards", str(MESH_SHARDS)]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env,
+                         cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    if run.returncode:
+        _fail(f"ppr_run --serve --shards {MESH_SHARDS} exited {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+    subs = [(re.compile(r"in [\d.]+s \([\d.]+ req/s"), "in <s>"),
+            (re.compile(r"\d+-shard mesh"), "single-device"),
+            (re.compile(r"mesh:shardx\d+"), "single"),
+            (re.compile(r"engine_sharded_"), "engine_")]
+
+    def counts(stdout):
+        lines = []
+        for ln in stdout.splitlines():
+            if ln.startswith("mesh: ") or re.match(r"\s+\S*(latency|_per_s)\S*\s", ln):
+                continue
+            for pat, sub in subs:
+                ln = pat.sub(sub, ln)
+            lines.append(tuple(ln.split()))
+        return sorted(lines)
+
+    placement = [ln for ln in run.stdout.splitlines() if ln.startswith("mesh: ")]
+    where = make_mesh((MESH_SHARDS,), ("shard",), device=dev).placement
+    if placement != [f"mesh: {MESH_SHARDS} shards on {where}"]:
+        _fail(f"ppr_run --shards: placement lines {placement}")
+    if counts(run.stdout) != counts(serve_stdout):
+        _fail(f"ppr_run --serve --shards {MESH_SHARDS}: {counts(run.stdout)} against "
+              f"--serve's {counts(serve_stdout)}")
+    rate = float(re.search(r"\(([\d.]+) req/s", run.stdout).group(1))
+    print(f"[sharded] ppr_run --serve --shards {MESH_SHARDS}: exit 0 in {wall:.1f} s, "
+          f"{rate:.1f} req/s, {placement[0]!r}; its count lines = --serve's ({card})")
+    return dict(wall_s=wall, req_per_s=rate, stdout=run.stdout)
+
+
+def sharded_phase(torch, np, graphs, dev, card, serve_stdout):
+    """Phase 10: (a) the kernel on shard streams, (b) the meshed served path,
+    (c) early exit, (d) deltas, (e) adaptive precision, (f) the paper's
+    envelope, (g) the driver.  ``launches`` counts coo_spmv over (b)'s
+    meshed served passes."""
+    t0 = time.perf_counter()
+    shards, rows = _shard_kernels(torch, np, graphs, dev, card)
+    t1 = time.perf_counter()
+    service, launches = _sharded_service(torch, np, graphs, dev, card)
+    t2 = time.perf_counter()
+    early = _sharded_early_exit(torch, np, graphs["pl_2e5"], dev, card)
+    deltas = _sharded_deltas(torch, np, graphs["gnp_2e5"], dev, card)
+    auto = _sharded_auto(torch, np, graphs["gnp_2e5"], dev, card)
+    t3 = time.perf_counter()
+    envelope = _paper_envelope(torch, np, dev, card)
+    t4 = time.perf_counter()
+    driver = _sharded_driver(np, dev, card, serve_stdout)
+    wall = time.perf_counter() - t0
+    print(f"[sharded] phase 10 took {wall:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
+          f"(c)-(e) {t3 - t2:.1f}, (f) {t4 - t3:.1f}, (g) {time.perf_counter() - t4:.1f}); "
+          f"coo_spmv launches on the served path {launches}")
+    torch.cuda.empty_cache()
+    return dict(shards=shards, rows=rows, service=service, early_exit=early, deltas=deltas,
+                auto=auto, envelope=envelope,
+                driver={k: v for k, v in driver.items() if k != "stdout"},
+                driver_stdout=driver["stdout"], wall_s=wall, launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the SpMV path
 # ---------------------------------------------------------------------------
 def spmv_path_phase(torch, np, g, dev):
@@ -2682,6 +3271,11 @@ def main() -> int:
     if obs["launches"] == 0:
         _fail("phase 9's served waves launched fused_ppr_iteration no time")
     rows += obs["deep_rows"]
+    sharded = sharded_phase(torch, np, graphs, dev, card,
+                            autotune["driver_stdout"]["serve"])
+    if sharded["launches"] == 0:
+        _fail("phase 10's meshed served passes launched coo_spmv no time")
+    rows += sharded["rows"]
     spmv_counts = spmv_path_phase(torch, np, graphs["gnp_2e5"], dev)
     lm_rows, tensor_cores = lm_kernel_phase(torch, dev)
     lm = lm_serving_phase(torch, np, dev)
@@ -2695,7 +3289,8 @@ def main() -> int:
 
     for r in rows:
         print(f"[times] {r['kernel']} {r['graph']} {r['domain']}"
-              f"{'' if 'k' not in r else ' K=' + str(r['k'])}: {r['ms']:.4f} "
+              f"{'' if 'k' not in r else ' K=' + str(r['k'])}"
+              f"{'' if 'shard' not in r else ' shard ' + r['shard']}: {r['ms']:.4f} "
               f"{r['plain_ms']:.4f} {r['bound_ms']:.4f} {opt(r['library_ms'])} "
               f"{r['unpadded_bound_ms']:.4f} {r['bound_ms'] / r['ms']:.4f} | "
               f"{r['device_ms']:.4f} {r['bound_ms'] / r['device_ms']:.4f} "
@@ -2717,8 +3312,11 @@ def main() -> int:
           f"{sv['single_wave_latency_p50_s'] * 1e3:.2f}/"
           f"{sv['single_wave_latency_p95_s'] * 1e3:.2f} ms")
 
-    launches = dict(service["launches"], coo_spmv=spmv_counts["coo_spmv"])
-    launches_by_path = {"fused_ppr_iteration": {
+    launches = dict(service["launches"],
+                    coo_spmv=spmv_counts["coo_spmv"] + sharded["launches"])
+    launches_by_path = {"coo_spmv": {"phase 5": spmv_counts["coo_spmv"],
+                                     "phase 10": sharded["launches"]},
+                        "fused_ppr_iteration": {
         "phase 3": service["launches"]["fused_ppr_iteration"],
         "phase 4b": deltas["launches"],
         "phase 8": autotune["launches"],
@@ -2732,7 +3330,9 @@ def main() -> int:
                "fused_ppr_dangling_mass": ("src/repro_torch/csrc/fused_ppr.cu",
                                            "src/repro/kernels/fused_ppr.py:365")}
     launches_source = {
-        "coo_spmv": "phase 5: core.spmv.spmv_kernel",
+        "coo_spmv": "phase 5: core.spmv.spmv_kernel, and phase 10: sharded served "
+                    "path (PPRService on a 4-shard mesh, gnp_2e5 and pl_2e5: each "
+                    "iteration's SpMV one call a shard)",
         "fused_ppr_iteration": "phase 3: PPRService served path, phase 4b: "
                                "the waves served after each delta on the refreshed "
                                "streams (gnp_2e5) and warm start (pl_2e5), and "
@@ -2749,6 +3349,7 @@ def main() -> int:
     for r in rows:
         src, repl = sources[r["kernel"]]
         suffix = ("" if "k" not in r else f",K={r['k']}") + (
+            "" if "shard" not in r else f",shard {r['shard']}") + (
             "" if r["graph"] == "gnp_2e5" else f",{r['graph']}")
         kernels.append(dict(
             name=f"{r['kernel']}[{r['domain']}{suffix}]", route="cuda", source=src,
@@ -2784,6 +3385,7 @@ def main() -> int:
         build_s=build_s, streams=streams, kernel_rows=rows, service=service,
         early_exit=early, deltas=deltas, autotune=autotune,
         observability={k: v for k, v in obs.items() if k != "deep_rows"},
+        sharded={k: v for k, v in sharded.items() if k not in ("rows", "driver_stdout")},
         lm_kernel_rows=lm_rows, tensor_cores=tensor_cores, lm_serving=lm,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -23,13 +23,23 @@ from repro_torch.core.ppr import (
     batched_ppr,
     make_ppr_fixed,
     make_ppr_fixed_step,
+    make_ppr_sharded_fixed_step,
+    make_ppr_sharded_float_step,
     personalization_matrix,
     personalization_matrix_fixed,
     ppr_float,
     ppr_step_float,
     run_ppr,
 )
-from repro_torch.core.spmv import spmv_fixed, spmv_float, spmv_kernel
+from repro_torch.core.spmv import (
+    make_sharded_spmv,
+    make_sharded_spmv_fixed,
+    partition_edges_by_dst,
+    sharded_vertex_layout,
+    spmv_fixed,
+    spmv_float,
+    spmv_kernel,
+)
 
 __all__ = [
     "COOGraph", "BlockedCOO", "EdgeMergeInfo", "merge_edge_delta",
@@ -38,6 +48,9 @@ __all__ = [
     "wrap_u32", "widen_u32",
     "PPRConfig", "run_ppr", "batched_ppr", "ppr_float", "make_ppr_fixed",
     "ppr_step_float", "make_ppr_fixed_step",
+    "make_ppr_sharded_float_step", "make_ppr_sharded_fixed_step",
     "personalization_matrix", "personalization_matrix_fixed",
     "spmv_float", "spmv_fixed", "spmv_kernel",
+    "make_sharded_spmv", "make_sharded_spmv_fixed",
+    "partition_edges_by_dst", "sharded_vertex_layout",
 ]

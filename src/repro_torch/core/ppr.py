@@ -1,7 +1,6 @@
 """Batched Personalized PageRank (paper Alg. 1 / eq. 1) in float and fixed point.
 
-Counterpart of ``repro.core.ppr`` (single-device part; the sharded step
-builders come with the multi-GPU slice).
+Counterpart of ``repro.core.ppr``.
 
 P_{t+1} = α·X·P_t + α/|V|·(d̄ᵀP_t)·1 + (1−α)·V̄       (eq. 1)
 
@@ -22,7 +21,12 @@ import torch
 
 from repro_torch.core.coo import COOGraph
 from repro_torch.core.fixed_point import QFormat, widen_u32, wrap_u32
-from repro_torch.core.spmv import spmv_fixed, spmv_float
+from repro_torch.core.spmv import (
+    make_sharded_spmv,
+    make_sharded_spmv_fixed,
+    spmv_fixed,
+    spmv_float,
+)
 from repro_torch.device import resolve_device
 
 
@@ -123,6 +127,51 @@ def make_ppr_fixed_step(fmt: QFormat, num_vertices: int, alpha: float):
             x, y, val_raw, dangling, Vmat, P,
             fmt=fmt, num_vertices=num_vertices, alpha_raw=a_raw,
             one_minus_alpha_raw=oma_raw, alpha_over_v_raw=aov_raw)
+
+    return step
+
+
+# ----------------------------------------------------------------------------
+# sharded step API — one eq. (1) iteration over a mesh-partitioned edge stream
+# ----------------------------------------------------------------------------
+@functools.lru_cache(maxsize=32)
+def make_ppr_sharded_float_step(mesh, axis: str, num_vertices: int, alpha: float):
+    """float32 single iteration whose SpMV runs over the shards of ``mesh``
+    along ``axis`` (``core.spmv.make_sharded_spmv``).
+
+    ``step(shards, dangling, Vmat, P)`` takes one ``(StreamTopology,
+    values)`` pair per shard and the rest on the controller.  Dangling mass
+    and the eq. (1) combine run on the controller with the same operations
+    as ``ppr_step_float`` (``_float_combine``), so the two steps can differ
+    only by the per-shard SpMV's summation order.
+    """
+    spmv = make_sharded_spmv(mesh, axis, num_vertices)
+
+    def step(shards, dangling, Vmat, P) -> torch.Tensor:
+        dangling_mass = dangling.to(torch.float32) @ P
+        xp = spmv(shards, P)
+        return _float_combine(xp, dangling_mass, Vmat,
+                              num_vertices=num_vertices, alpha=alpha)
+
+    return step
+
+
+@functools.lru_cache(maxsize=32)
+def make_ppr_sharded_fixed_step(fmt: QFormat, mesh, axis: str,
+                                num_vertices: int, alpha: float):
+    """Bit-exact fixed-point single iteration over a mesh.
+
+    Per-shard raw sums are exact and each dst row lives on exactly one
+    shard, so the result is *bit-identical* to ``make_ppr_fixed_step``'s.
+    """
+    a_raw, oma_raw, aov_raw = _fixed_consts(fmt, num_vertices, alpha)
+    spmv = make_sharded_spmv_fixed(mesh, axis, num_vertices, fmt)
+
+    def step(shards, dangling, Vmat, P) -> torch.Tensor:
+        dangling_mass = _fixed_dangling_mass(dangling, P)
+        xp = spmv(shards, P)
+        return _fixed_combine(xp, dangling_mass, Vmat, fmt=fmt, alpha_raw=a_raw,
+                              one_minus_alpha_raw=oma_raw, alpha_over_v_raw=aov_raw)
 
     return step
 

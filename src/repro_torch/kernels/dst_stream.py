@@ -2,10 +2,12 @@
 
 No counterpart in the reference: its Pallas kernels stream the packet-padded
 layouts (``BlockedCOO`` packets, ``FusedLayout`` rows), and so do the host
-sides of the port.  ``build_dst_stream`` takes the packet form an entry point
-already holds — a ``BlockedCOO`` (through ``ops.packet_metadata``) or a
-``FusedLayout`` (through ``fused_schedule``) — globalises its local indices,
-drops every pad slot and sorts the real edges stably by global dst.  A real
+sides of the port.  ``build_dst_stream`` takes the form an entry point
+already holds — a ``BlockedCOO`` (through ``ops.packet_metadata``), a
+``FusedLayout`` (through ``fused_schedule``), or edge arrays ``(dst, src,
+val, num_rows)`` such as one shard's bucket of ``partition_edges_by_dst`` —
+globalises its local indices, drops every pad
+slot and sorts the real edges stably by global dst.  A real
 edge has value 1/outdeg > 0 and a pad has 0.0, so dropping the zero-valued
 slots is exact in float32 and in fixed point.  The result is CSR over dst
 rows:
@@ -157,10 +159,11 @@ def _pick_slice_edges(num_edges: int) -> int:
     return int(min(MAX_SLICE_EDGES, max(32, -(-per_warp // 32) * 32)))
 
 
-def build_dst_stream(source: Union[BlockedCOO, FusedLayout],
+def build_dst_stream(source: Union[BlockedCOO, FusedLayout, Tuple],
                      slice_edges: Optional[int] = None) -> DstStream:
     """The pad-free dst stream of a ``BlockedCOO`` (rows: n_dst·v_tile, the
-    SpMV's output rows) or a ``FusedLayout`` (rows: |V|).
+    SpMV's output rows), a ``FusedLayout`` (rows: |V|) or edge arrays
+    ``(dst, src, val, num_rows)`` (float32 values; rows: ``num_rows``).
 
     ``slice_edges`` (a multiple of 32, at most ``MAX_SLICE_EDGES``) defaults
     to the size that gives about a thousand CTAs."""
@@ -168,9 +171,12 @@ def build_dst_stream(source: Union[BlockedCOO, FusedLayout],
         dst, src, val, num_rows = _blocked_edges(source)
     elif isinstance(source, FusedLayout):
         dst, src, val, num_rows = _layout_edges(source)
+    elif isinstance(source, tuple) and len(source) == 4:
+        dst, src, val, num_rows = source
+        dst, src = np.asarray(dst, np.int64), np.asarray(src, np.int64)
     else:
-        raise TypeError(f"build_dst_stream takes a BlockedCOO or a FusedLayout, "
-                        f"not {type(source).__name__}")
+        raise TypeError(f"build_dst_stream takes a BlockedCOO, a FusedLayout or "
+                        f"(dst, src, val, num_rows), not {type(source).__name__}")
     real = np.asarray(val) != 0
     dst, src, val = dst[real], src[real], np.asarray(val, np.float32)[real]
     order = np.argsort(dst, kind="stable")
@@ -196,3 +202,4 @@ def build_dst_stream(source: Union[BlockedCOO, FusedLayout],
         col=src[order].astype(np.int32), val=val[order],
         nz_rows=nz_rows.astype(np.int32), slice_edges=s,
         slice_row=slice_row.astype(np.int32))
+

@@ -11,7 +11,11 @@ vertices in κ-sized batches, at a chosen fixed-point bit-width, and score the
 rankings against the float64 CPU oracle at convergence (§5.3 metrics).
 
 ``--serve`` routes the same workload through ``PPRService`` (κ-batched waves,
-top-K, telemetry) instead of the raw ``batched_ppr`` loop; ``--replay-deltas N``
+top-K, telemetry) instead of the raw ``batched_ppr`` loop; ``--shards N``
+additionally registers the graph on an N-way mesh (``launch.mesh.make_mesh``
+on ``--device``: shard i on ``cuda:{i % cards}``), so waves run the sharded
+engines with each shard's SpMV through the streaming SpMV kernel;
+``--replay-deltas N``
 serves a Zipf-ish query mix on a live service and replays N edge-delta rounds
 against it (scoped invalidation, warm start, prefetch re-warming);
 ``--http PORT`` serves the graph behind the asyncio HTTP tier until
@@ -20,16 +24,14 @@ tracing and print the flight recorder; ``--slo`` and ``--otlp-endpoint``
 arm the SLO monitor and the OTLP exporter of the HTTP mode.
 
 Everything runs on ``--device`` (``cuda`` unless the caller asks for the CPU;
-asking for ``cuda`` on a host without a GPU raises).  Not ported yet:
-``--shards N>1`` raises ``NotImplementedError`` naming the multi-GPU slice
-before any graph is built.
+asking for ``cuda`` on a host without a GPU raises).
+
+    PYTHONPATH=src python -m repro_torch.launch.ppr_run --serve --shards 4
 """
 from __future__ import annotations
 
 import argparse
 import time
-
-from repro_torch.ppr_serving.slices import MESH_SLICE, not_ported
 
 
 def _parse_args(argv=None):
@@ -48,7 +50,8 @@ def _parse_args(argv=None):
                     help="route through PPRService (waves, top-K, telemetry)")
     ap.add_argument("--shards", type=int, default=1,
                     help="with --serve: register the graph on an N-way mesh "
-                         f"(N>1 comes with {MESH_SLICE})")
+                         "(shard i on cuda:{i %% cards}; every shard on the "
+                         "CPU with --device cpu)")
     ap.add_argument("--topk", type=int, default=10,
                     help="with --serve: recommendations per query")
     ap.add_argument("--http", type=int, default=None, metavar="PORT",
@@ -93,15 +96,8 @@ def _parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """Raise for ``--shards N>1``, whose slice is not ported yet."""
-    if args.shards > 1:
-        raise not_ported("ppr_run --shards N>1", MESH_SLICE)
-
-
 def main(argv=None):
     args = _parse_args(argv)
-    _refuse_unported(args)
 
     import numpy as np
 
@@ -127,7 +123,7 @@ def main(argv=None):
     if args.replay_deltas:
         _replay_deltas(args, g, fmt, label, dev)
         return
-    if args.serve:
+    if args.serve or args.shards > 1:
         scores = _serve(args, g, vertices, fmt, label, dev)
     else:
         t0 = time.time()
@@ -149,17 +145,23 @@ def main(argv=None):
 
 
 def _serve(args, g, vertices, fmt, label, dev):
-    """PPRService path: waves + top-K + telemetry on one device.
+    """PPRService path: waves + top-K + telemetry, optionally mesh-sharded.
 
     Returns None (skipping the dense-score oracle comparison): the service
     returns ranked top-K results, not dense score matrices.  This driver
-    reports serving throughput and wave telemetry."""
+    reports serving throughput and per-mesh wave telemetry."""
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.ppr_serving import PPRQuery, PPRService
 
+    mesh = None
+    if args.shards > 1:
+        mesh = make_mesh((args.shards,), ("shard",), device=dev)
+        print(f"mesh: {args.shards} shards on {mesh.placement}")
     svc = PPRService(kappa=args.kappa, iterations=args.iterations,
                      alpha=args.alpha, cache_capacity=0,      # measure compute
                      tracing=_tracing(args), device=dev)
-    svc.register_graph(args.graph, g, formats=[] if fmt is None else [fmt])
+    svc.register_graph(args.graph, g, formats=[] if fmt is None else [fmt],
+                       mesh=mesh)
     precision = None if fmt is None else fmt.name
     queries = [PPRQuery(args.graph, int(v), k=args.topk, precision=precision)
                for v in vertices]
@@ -169,7 +171,8 @@ def _serve(args, g, vertices, fmt, label, dev):
     t0 = time.time()
     recs = svc.run_batch(queries)
     dt = time.time() - t0
-    print(f"{label} via PPRService on single-device: {len(recs)} queries in {dt:.3f}s "
+    where = "single-device" if mesh is None else f"{args.shards}-shard mesh"
+    print(f"{label} via PPRService on {where}: {len(recs)} queries in {dt:.3f}s "
           f"({len(recs)/dt:.1f} req/s, κ={args.kappa}, top-{args.topk})")
     t = svc.telemetry_summary()
     for k in sorted(t):

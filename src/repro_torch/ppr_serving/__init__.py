@@ -6,10 +6,12 @@ serves ranked, self-excluding top-K ``Recommendation``s through futures;
 ``prefetch=`` warms the result cache on idle polls; ``tracing=``/``slo=``/
 ``otlp=`` arm the observability layer, and ``PPRHTTPServer`` serves the
 futures API over asyncio HTTP (``repro_torch.ppr_serving.http``).  A
-graph registers onto an engine family: "single" (plain PyTorch) or "fused"
-(the hand-written fused-iteration CUDA kernel; its plain version on the CPU).
-Everything runs on the service's ``device`` ("cuda" unless the caller asks
-for the CPU).
+graph registers onto an engine family: "single" (plain PyTorch), "fused"
+(the hand-written fused-iteration CUDA kernel; its plain version on the CPU)
+or, given ``mesh=`` (``repro_torch.launch.mesh.make_mesh``), "sharded"
+(dst-range shards, each through the streaming SpMV kernel).  Everything
+runs on the service's ``device`` ("cuda" unless the caller asks for the
+CPU); a meshed graph's shards run on the mesh's devices of that type.
 """
 from repro_torch.ppr_serving.cache import LRUCache
 from repro_torch.ppr_serving.engine import (
@@ -18,6 +20,9 @@ from repro_torch.ppr_serving.engine import (
     FusedFixedEngine,
     FusedFloatEngine,
     FusedRegisteredGraph,
+    ShardedFixedEngine,
+    ShardedFloatEngine,
+    ShardedRegisteredGraph,
     WaveEngine,
     WavePlan,
     engine_families,
@@ -52,11 +57,12 @@ from repro_torch.ppr_serving.topk import topk_dense, topk_streaming
 
 __all__ = [
     "PPRService", "PPRQuery", "Recommendation", "PPRFuture", "QueryRejected",
-    "RegisteredGraph", "FusedRegisteredGraph",
+    "RegisteredGraph", "FusedRegisteredGraph", "ShardedRegisteredGraph",
     "WaveEngine", "WavePlan",
     "register_engine", "get_engine", "engine_for", "family_members",
     "engine_names", "engine_families",
     "FloatEngine", "FixedEngine", "FusedFloatEngine", "FusedFixedEngine",
+    "ShardedFloatEngine", "ShardedFixedEngine",
     "normalize_precision", "precision_key", "AUTO_KEY", "FLOAT_KEY",
     "SINGLE_DEVICE_KEY",
     "WaveScheduler", "Wave",

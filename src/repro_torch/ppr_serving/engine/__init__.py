@@ -5,8 +5,10 @@
 personalization-matrix builder, the one-iteration step over the engine's
 device arrays, the iterate driver (fixed budget or early-exit), and the top-K
 reduction.  Engines register by name into *families* with one float and one
-fixed member: "single" (plain PyTorch over the full edge stream) and "fused"
-(the hand-written fused-iteration kernel, the reference's "pallas").
+fixed member: "single" (plain PyTorch over the full edge stream), "fused"
+(the hand-written fused-iteration kernel, the reference's "pallas") and
+"sharded" (dst-range shards over a ``launch.mesh.Mesh``, each shard's SpMV
+through the hand-written streaming SpMV kernel).
 """
 from repro_torch.ppr_serving.engine.base import (
     WaveEngine,
@@ -24,6 +26,8 @@ from repro_torch.ppr_serving.engine.fused import (
     FusedFloatEngine,
     FusedRegisteredGraph,
 )
+from repro_torch.ppr_serving.engine.sharded import ShardedFixedEngine, ShardedFloatEngine
+from repro_torch.ppr_serving.graphs import ShardedRegisteredGraph
 
 __all__ = [
     "WaveEngine", "WavePlan",
@@ -31,4 +35,5 @@ __all__ = [
     "engine_names", "engine_families",
     "FloatEngine", "FixedEngine",
     "FusedFloatEngine", "FusedFixedEngine", "FusedRegisteredGraph",
+    "ShardedFloatEngine", "ShardedFixedEngine", "ShardedRegisteredGraph",
 ]

@@ -1,8 +1,7 @@
 """`WaveEngine` protocol + `WavePlan` + the engine registry.
 
-Counterpart of ``repro.ppr_serving.engine.base``.  This slice registers the
-"single" and "fused" families; the sharded family comes with the multi-GPU
-slice.
+Counterpart of ``repro.ppr_serving.engine.base``.  The port registers the
+"single", "fused" and "sharded" families.
 
 An engine is the pluggable datapath behind the serving API: it owns how a
 registered graph's device state is prepared (quantization, partitioning,
@@ -17,8 +16,9 @@ one engine instance serves every graph and the registry can hand out shared
 instances.
 
 Registry layout: every concrete engine registers under its own ``key``
-("float", "fixed", "fused_float", "fused_fixed") and into a *family*
-("single", "fused") with one float and one fixed member — a graph is
+("float", "fixed", "fused_float", "fused_fixed", "sharded_float",
+"sharded_fixed") and into a *family* ("single", "fused", "sharded") with one
+float and one fixed member — a graph is
 registered onto a family (``register_graph(..., engine="fused")``) and each
 wave resolves to the family's member for its precision, so float and fixed
 traffic on one graph share host state but run their own datapaths.  New
@@ -78,15 +78,22 @@ class WaveEngine(abc.ABC):
     key: ClassVar[str]
     family: ClassVar[str]
     fixed: ClassVar[bool]
+    #: family needs a ``launch.mesh.Mesh`` at registration
+    needs_mesh: ClassVar[bool] = False
 
-    def make_graph(self, name: str, g, packet: int = 256, device="cuda"):
+    def make_graph(self, name: str, g, packet: int = 256, mesh=None,
+                   mesh_axis: Optional[str] = None, device="cuda"):
         """Construct the graph-state holder this engine family serves, with
-        its device uploads on ``device``.
+        its device uploads on ``device`` (a meshed graph's on the mesh).
 
         The service calls the family's first member at registration, so a
         new family can carry its own ``RegisteredGraph`` subclass without a
         ``service.py`` edit."""
-        from repro_torch.ppr_serving.graphs import RegisteredGraph
+        from repro_torch.ppr_serving.graphs import (RegisteredGraph,
+                                                    ShardedRegisteredGraph)
+        if self.needs_mesh:
+            return ShardedRegisteredGraph(name, g, mesh, axis=mesh_axis,
+                                          packet=packet, device=device)
         return RegisteredGraph(name, g, packet=packet, device=device)
 
     @abc.abstractmethod

@@ -260,7 +260,8 @@ class FusedFloatEngine(WaveEngine):
     family = "fused"
     fixed = False
 
-    def make_graph(self, name: str, g, packet: int = 256, device="cuda"):
+    def make_graph(self, name: str, g, packet: int = 256, mesh=None,
+                   mesh_axis: Optional[str] = None, device="cuda"):
         return FusedRegisteredGraph(name, g, packet=packet, device=device)
 
     def prepare(self, rg, fmt: Optional[QFormat] = None) -> None:
@@ -295,7 +296,8 @@ class FusedFixedEngine(WaveEngine):
     family = "fused"
     fixed = True
 
-    def make_graph(self, name: str, g, packet: int = 256, device="cuda"):
+    def make_graph(self, name: str, g, packet: int = 256, mesh=None,
+                   mesh_axis: Optional[str] = None, device="cuda"):
         return FusedRegisteredGraph(name, g, packet=packet, device=device)
 
     def prepare(self, rg, fmt: Optional[QFormat] = None) -> None:

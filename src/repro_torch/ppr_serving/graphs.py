@@ -1,8 +1,9 @@
 """Registered-graph state holders — host topology + device upload caches.
 
-Counterpart of ``repro.ppr_serving.graphs`` (``RegisteredGraph`` only: the
-sharded graph comes with the multi-GPU slice).  Every upload goes to the
-graph's ``device`` — the service's.
+Counterpart of ``repro.ppr_serving.graphs``.  Every upload of a
+``RegisteredGraph`` goes to the graph's ``device`` — the service's; a
+``ShardedRegisteredGraph`` keeps its replicated state on its mesh's
+controller and each shard's stream on that shard's device.
 
 What lives here is what every engine shares: the unpadded host graph (the
 delta base), packet padding, the out-degree vector, the host-side raw
@@ -16,17 +17,18 @@ different topologies never alias.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.coo import COOGraph, EdgeMergeInfo, quantize_values
 from repro_torch.core.fixed_point import QFormat
+from repro_torch.core.spmv import sharded_vertex_layout
 from repro_torch.device import resolve_device
 from repro_torch.ppr_serving.telemetry import SINGLE_DEVICE_KEY
 
-__all__ = ["RegisteredGraph"]
+__all__ = ["RegisteredGraph", "ShardedRegisteredGraph"]
 
 
 class RegisteredGraph:
@@ -163,3 +165,57 @@ class RegisteredGraph:
             self.device_full()
         self.delta_timings["upload_base"] = (self.delta_timings.get("upload_base", 0.0)
                                              + time.perf_counter() - t0)
+
+
+class ShardedRegisteredGraph(RegisteredGraph):
+    """A registered graph whose edge stream is partitioned by destination
+    range over one axis of a ``launch.mesh.Mesh`` (the paper's multi-channel
+    partitioning, scaled to several devices): waves on it run the sharded
+    engines.
+
+    Holds the bucketed host layout (``_host_x``/``_host_y``/``_host_val``,
+    one row per shard, and ``_sharded_quant_host`` per prepared format, as
+    the reference keeps them) and beside it one pad-free dst stream per
+    shard (``shard_streams``) with its uploads on the shard's device.  P,
+    the dangling vector, the combine and top-K live on the mesh's
+    controller, which is the graph's ``device``.  The partitioning and the
+    per-bucket delta refresh live in ``repro_torch.ppr_serving.engine.sharded``."""
+
+    engine_family = "sharded"
+
+    _defer_full_upload = True
+
+    def __init__(self, name: str, g: COOGraph, mesh, axis: Optional[str] = None,
+                 packet: int = 256, device=None):
+        controller = mesh.controller
+        if device is not None and resolve_device(device).type != controller.type:
+            raise ValueError(f"the mesh's devices are {controller.type}, the "
+                             f"graph's device is {resolve_device(device)}")
+        self.mesh = mesh
+        self.axis = axis if axis is not None else mesh.axis_names[0]
+        if self.axis not in mesh.axis_names:
+            raise ValueError(f"mesh has no axis {self.axis!r} "
+                             f"(axes: {mesh.axis_names})")
+        self.n_shards = int(mesh.shape[self.axis])
+        self.mesh_key = f"mesh:{self.axis}x{self.n_shards}"
+        self.shard_devices = mesh.axis_devices(self.axis)
+        self._sharded_quant_host: Dict[QFormat, np.ndarray] = {}  # [S, max_e]
+        self.shard_streams: List = []
+        self._sharded_stale = False
+        self._pre_delta_v_local = 0
+        #: shards the last delta refresh rebuilt; None for a full re-partition
+        self.last_refresh_shards: Optional[List[int]] = None
+        super().__init__(name, g, packet=packet, device=controller)
+        from repro_torch.ppr_serving.engine.sharded import partition_topology
+        partition_topology(self)
+
+    def apply_delta(self, delta) -> EdgeMergeInfo:
+        """Host merge plus the bookkeeping the sharded engines' per-bucket
+        refresh needs: the pre-merge ceil-division layout (vertex growth may
+        move it) and a staleness latch making the refresh idempotent across
+        the family's two armed engines."""
+        self._pre_delta_v_local, _ = sharded_vertex_layout(self.num_vertices,
+                                                           self.n_shards)
+        info = super().apply_delta(delta)
+        self._sharded_stale = True
+        return info

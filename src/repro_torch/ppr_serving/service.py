@@ -36,8 +36,12 @@ recorder and an OTLP exporter, and SLO burn rates over the telemetry
 registry.  ``set_kappa`` and ``export_telemetry`` are the hooks the HTTP
 tier's admission controller and pump drive (``repro_torch.ppr_serving.http``).
 
-Not in this slice, each raising ``NotImplementedError``: ``mesh`` (the
-multi-GPU slice), and the deprecated ``serve``/``pump``/``drain``.
+``register_graph(mesh=...)`` partitions a graph by destination range over
+a ``repro_torch.launch.mesh.Mesh`` (engine family "sharded"): each shard's
+SpMV runs on its device, the combine and top-K on the mesh's controller.
+
+Not ported, each raising ``NotImplementedError``: the deprecated
+``serve``/``pump``/``drain``.
 """
 from __future__ import annotations
 
@@ -66,7 +70,6 @@ from repro_torch.ppr_serving.futures import PPRFuture, QueryRejected
 from repro_torch.ppr_serving.graphs import RegisteredGraph
 from repro_torch.ppr_serving.prefetch import PrefetchConfig, Prefetcher
 from repro_torch.ppr_serving.scheduler import Wave, WaveScheduler
-from repro_torch.ppr_serving.slices import MESH_SLICE, not_ported
 from repro_torch.ppr_serving.telemetry import ServiceTelemetry
 
 Precision = Union[None, int, str, QFormat]
@@ -257,23 +260,40 @@ class PPRService:
         """Register a graph onto an engine family; optionally pre-quantize.
 
         ``engine`` names the backend family serving the graph's waves:
-        "single" (plain PyTorch over the full edge stream, the default) or
-        "fused" (the fused-iteration kernel).  Re-registering an existing name
-        invalidates that graph's cached results, rejects its still-pending
-        futures and resets its quality estimates — nothing from the old
-        topology may be served or steer the precision ladder."""
-        if mesh is not None or mesh_axis is not None:
-            raise not_ported("register_graph(mesh=...)", MESH_SLICE)
+        "single" (plain PyTorch over the full edge stream), "fused" (the
+        fused-iteration kernel) or "sharded", which partitions the edges by
+        destination range over ``mesh``/``mesh_axis`` (a
+        ``launch.mesh.Mesh`` of the service's device type; same results —
+        bit-identical on the fixed path; ``num_vertices`` need not divide
+        the shard count).  Default: "sharded" when a mesh is given, else
+        "single".  Re-registering an existing name invalidates that graph's
+        cached results, rejects its still-pending futures and resets its
+        quality estimates — nothing from the old topology may be served or
+        steer the precision ladder."""
         with self._lock:
-            return self._register_graph_locked(name, g, formats, packet, engine)
+            return self._register_graph_locked(name, g, formats, packet,
+                                               mesh, mesh_axis, engine)
 
-    def _register_graph_locked(self, name, g, formats, packet,
-                               engine) -> RegisteredGraph:
-        family = "single" if engine is None else engine
+    def _register_graph_locked(self, name, g, formats, packet, mesh,
+                               mesh_axis, engine) -> RegisteredGraph:
+        family = engine if engine is not None else \
+            ("sharded" if mesh is not None else "single")
         if family not in engine_families():
             raise ValueError(f"unknown engine family {family!r} "
                              f"(have {list(engine_families())})")
+        # family-level metadata resolves through any member: fixed-only
+        # plug-in families are legal and must be able to register
         members = family_members(family)
+        needs_mesh = members[0].needs_mesh
+        if needs_mesh and mesh is None:
+            raise ValueError(f"engine {family!r} needs a mesh= at registration")
+        if not needs_mesh and mesh is not None:
+            raise ValueError(f"engine {family!r} runs single-device — drop "
+                             f"mesh= or pick a sharded family "
+                             f"(have {list(engine_families())})")
+        if mesh is not None and mesh.controller.type != self.device.type:
+            raise ValueError(f"the mesh's devices are {mesh.controller.type}, "
+                             f"the service runs on {self.device}")
         if name in self._graphs:
             self.cache.invalidate(lambda key: key[0] == name)
             for _key, fut, _t, _d in self.scheduler.extract(
@@ -293,7 +313,8 @@ class PPRService:
                 self.prefetcher.drop_graph(name)
             self.telemetry.forget_graph_demand(name)
         rg: RegisteredGraph = members[0].make_graph(
-            name, g, packet=packet, device=self.device)
+            name, g, packet=packet, mesh=mesh, mesh_axis=mesh_axis,
+            device=self.device)
         rg.engine_family = family
         if not members[0].fixed:          # float member present: prepare it
             members[0].prepare(rg)
@@ -928,9 +949,10 @@ class PPRService:
         reference.
 
         The float32 reference runs through the graph's own float engine (on
-        the "fused" family, the fused-iteration kernel) over only the
-        sampled columns, for the full iteration budget with no early exit,
-        so shadow cost scales with ``sample_fraction``.  Only the sampled
+        the "fused" family, the fused-iteration kernel; on a meshed graph it
+        stays on the mesh, whose full layout is never uploaded) over only
+        the sampled columns, for the full iteration budget with no early
+        exit, so shadow cost scales with ``sample_fraction``.  Only the sampled
         columns of the served state and the reference are copied to the
         host, once a wave."""
         estimator = self.controller.estimator

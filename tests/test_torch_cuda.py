@@ -591,3 +591,156 @@ def test_cuda_quantized_matmul_split_k(cuda, dtype, m, k, n):
     assert torch.equal(got, again)
     torch.testing.assert_close(got.cpu(), quantized_matmul_plain(a, qt.q, qt.scale),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the sharded path: coo_spmv over shard streams, the meshed service
+# ---------------------------------------------------------------------------
+def _shard_streams(g, s):
+    from repro_torch.core.spmv import partition_edges_by_dst, sharded_vertex_layout
+
+    x, y, val = (a.reshape(s, -1) for a in partition_edges_by_dst(
+        g.x, g.y, g.val, g.num_vertices, s))
+    v_local, _ = sharded_vertex_layout(g.num_vertices, s)
+    return [build_dst_stream((x[i], y[i], val[i], v_local)) for i in range(s)]
+
+
+def _check_shard_kernel(cuda, st, p, fmt):
+    """The kernel over one shard stream against its plain version: raw bits
+    equal, float32 within rtol 1e-5 + atol 1e-9 of the plain version run in
+    float64."""
+    topo, val = st.topology("cpu"), st.values("cpu", fmt)
+    fb = None if fmt is None else fmt.frac_bits
+    out_k = coo_spmv_kernel(topo.to(cuda), val.to(cuda), p.to(cuda), frac_bits=fb).cpu()
+    assert out_k.shape == (st.num_rows, p.shape[1])
+    if fmt is None:
+        want = coo_spmv_plain(topo, val.double(), p.double())
+        torch.testing.assert_close(out_k.double(), want, rtol=1e-5, atol=1e-9)
+    else:
+        assert torch.equal(out_k, coo_spmv_plain(topo, val, p, frac_bits=fb))
+    return out_k
+
+
+@pytest.mark.parametrize("fmt", [None, tfp.Q1_25], ids=["f32", "Q1.25"])
+@pytest.mark.parametrize("k", [1, 3, 16, 64])
+def test_cuda_shard_streams_match_plain(cuda, fmt, k):
+    """Every shard of the hub graph over 3 shards (a short last shard) and 30
+    (shards 20 and 21 cover the empty range 1000..1099 and have no edge): each
+    shard's kernel output against its plain version, and the gathered rows
+    against the whole graph's plain SpMV."""
+    from repro_torch.core.spmv import spmv_fixed, spmv_float
+
+    g = _hub_graph()
+    rng = np.random.default_rng(k)
+    p = torch.from_numpy((rng.random((g.num_vertices, k)) * 2 / g.num_vertices)
+                         .astype(np.float32))
+    if fmt is not None:
+        p = fmt.from_float(p)
+    for s in (3, 30):
+        streams = _shard_streams(g, s)
+        assert s == 3 or streams[20].num_edges == streams[21].num_edges == 0
+        out = torch.cat([_check_shard_kernel(cuda, st, p, fmt) for st in streams])
+        x, y = torch.from_numpy(g.x), torch.from_numpy(g.y)
+        if fmt is None:
+            want = spmv_float(x, y, torch.from_numpy(g.val).double(), p.double(),
+                              g.num_vertices)
+            torch.testing.assert_close(out[:g.num_vertices].double(), want,
+                                       rtol=1e-5, atol=1e-9)
+        else:
+            val = torch.from_numpy(g.quantized_val(fmt).view(np.int32))
+            assert torch.equal(out[:g.num_vertices],
+                               spmv_fixed(x, y, val, p, g.num_vertices, fmt))
+
+
+@pytest.mark.parametrize("fmt", [None, tfp.Q1_25], ids=["f32", "Q1.25"])
+def test_cuda_zero_edge_shard_comes_back_zero(cuda, fmt):
+    """A shard stream with rows and no edge, its output allocated over
+    memory left full of ones: every row comes back 0."""
+    from repro_torch.kernels.dst_stream import build_dst_stream
+
+    st = build_dst_stream((np.zeros(0, np.int32), np.zeros(0, np.int32),
+                           np.zeros(0, np.float32), 5000))
+    assert (st.num_edges, st.num_slices) == (0, 1)
+    p = torch.ones((40, 16), dtype=torch.float32 if fmt is None else torch.int32)
+    for _ in range(3):
+        junk = torch.full((5000 * 16,), -1, dtype=torch.int32, device=cuda)
+        del junk
+        out = _check_shard_kernel(cuda, st, p, fmt)
+        assert not out.any()
+
+
+def test_cuda_hub_shard_matches_plain(cuda):
+    """pl_2e5's hub shard at the test's size: a 4-shard layout of a power-law
+    graph puts most edges and the hub rows in shard 0; Q1.25 raw-bit equal,
+    float32 at the float64 plain version's limits."""
+    from repro_torch.graphs import holme_kim_powerlaw
+
+    g = holme_kim_powerlaw(20000, m=4, seed=1)
+    streams = _shard_streams(g, 4)
+    assert streams[0].num_edges == max(st.num_edges for st in streams)
+    assert int(np.diff(streams[0].row_ptr).max()) > 1000
+    rng = np.random.default_rng(2)
+    p = torch.from_numpy((rng.random((g.num_vertices, 16)) * 2 / g.num_vertices)
+                         .astype(np.float32))
+    for fmt in (None, tfp.Q1_25):
+        for st in streams:
+            _check_shard_kernel(cuda, st, p if fmt is None else fmt.from_float(p), fmt)
+
+
+def _meshed_and_fused(cuda, g, mesh, queries, **svc_kw):
+    from repro_torch.ppr_serving import PPRService
+
+    out = {}
+    for name, kw in (("sharded", dict(mesh=mesh)), ("fused", dict(engine="fused"))):
+        svc = PPRService(kappa=16, iterations=10, device=cuda, **svc_kw)
+        svc.register_graph("g", g, formats=[26], **kw)
+        before = coo_spmv_kernel.launches
+        recs = svc.run_batch(queries)
+        torch.cuda.synchronize()
+        out[name] = (recs, svc, coo_spmv_kernel.launches - before)
+    return out
+
+
+def _check_meshed_equal_fused(out, s):
+    (rm, sm, lm), (rf, _, lf) = out["sharded"], out["fused"]
+    for a, b in zip(rm, rf):
+        assert np.array_equal(a.vertices, b.vertices)
+        if a.precision == "f32":
+            assert np.abs(a.scores - b.scores).max() <= 1e-6
+        else:
+            assert np.array_equal(a.scores, b.scores)
+    waves = sm.telemetry_summary()[f"waves_mesh:shardx{s}"]
+    assert lf == 0 and lm == waves * 10 * s
+
+
+def test_cuda_meshed_service_equals_fused(cuda):
+    """A 4-shard mesh on the card (every shard on the cards there are, wrapped)
+    serves Q1.25 raw-equal and float32 within 1e-6 of the fused family, top-K
+    identical, each iteration one coo_spmv launch a shard."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.ppr_serving import PPRQuery
+
+    g = erdos_renyi(3000, 30000, seed=2)
+    verts = np.random.default_rng(7).choice(g.num_vertices, 32, replace=False)
+    queries = ([PPRQuery("g", int(v), precision=26) for v in verts]
+               + [PPRQuery("g", int(v)) for v in verts[:16]])
+    mesh = make_mesh((4,), ("shard",), device=cuda)
+    _check_meshed_equal_fused(_meshed_and_fused(cuda, g, mesh, queries), 4)
+
+
+def test_cuda_mesh_across_two_cards(cuda):
+    """A 2-shard mesh over two cards: P copied to the second card, its rows
+    gathered back to the first, answers equal to the fused family's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the shards then sit on different cards "
+                    "and P and the rows cross between them")
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.ppr_serving import PPRQuery
+
+    g = erdos_renyi(3000, 30000, seed=2)
+    verts = np.random.default_rng(8).choice(g.num_vertices, 16, replace=False)
+    queries = ([PPRQuery("g", int(v), precision=26) for v in verts]
+               + [PPRQuery("g", int(v)) for v in verts])
+    mesh = make_mesh((2,), ("shard",), device=cuda)
+    assert mesh.placement == "cuda:0×1, cuda:1×1"
+    _check_meshed_equal_fused(_meshed_and_fused(cuda, g, mesh, queries), 2)

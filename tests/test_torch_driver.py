@@ -11,8 +11,10 @@ dump under ``--dump-traces`` (``--trace``, ``--trace-sample``), span
 durations, event times and latencies masked.  ``--http`` runs as a
 subprocess of each package on 127.0.0.1, with ``--slo`` and
 ``--otlp-endpoint`` pointed at a stdlib collector: the banners, the answers
-and the closing ``otlp:`` line agree.  ``--shards N>1`` raises
-``NotImplementedError`` naming its slice, before any graph is built.
+and the closing ``otlp:`` line agree.  ``--serve --shards N`` on a CPU
+mesh prints what the reference's single-device ``--serve`` prints, with the
+layout words mapped (the reference's own ``--shards N>1`` fails on this
+JAX in its top-K).
 """
 import json
 import os
@@ -241,16 +243,45 @@ def test_http_mode_serves_like_the_reference():
     assert int(otlp.split()[1]) == spans == want[2] > 0
 
 
-@pytest.mark.parametrize("argv,slice_name", [
-    (["--serve", "--shards", "4"], "multi-GPU"),
-], ids=["shards"])
-def test_unported_flags_raise_before_any_graph(monkeypatch, argv, slice_name):
-    def no_graph(*a, **kw):
-        raise AssertionError("a graph was built before the flag was refused")
+_LAYOUT_WORDS = [(re.compile(r"\d+-shard mesh"), "single-device"),
+                 (re.compile(r"mesh:shardx\d+"), "single"),
+                 (re.compile(r"engine_sharded_"), "engine_")]
 
-    monkeypatch.setattr(repro_torch.graphs, "paper_graph_suite", no_graph)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        trun.main(argv + ["--device", "cpu"])
+
+def _single_device_words(lines):
+    """``--shards`` output in the single-device wording: the placement line
+    dropped, the mesh's layout and engine words mapped, whitespace split."""
+    out = []
+    for ln in lines:
+        if ln.startswith("mesh: "):
+            continue
+        for pat, sub in _LAYOUT_WORDS:
+            ln = pat.sub(sub, ln)
+        out.append(ln.split())
+    return out
+
+
+@pytest.mark.parametrize("argv", [["--serve", "--shards", "4"],
+                                  ["--serve", "--shards", "3", "--float", "--topk", "5"],
+                                  ["--shards", "8", "--bits", "20", "--kappa", "16",
+                                   "--requests", "40"]],
+                         ids=["Q1.25-S4", "float-S3", "Q1.19-S8-without-serve"])
+def test_serve_on_a_mesh_prints_what_reference_single_device_prints(monkeypatch, capsys,
+                                                                    argv):
+    """``--shards N`` serves (``--serve`` implied, as in the reference) on an
+    N-shard CPU mesh: one placement line, then the reference's single-device
+    ``--serve`` lines with the layout words mapped, timings masked."""
+    shards = argv[argv.index("--shards") + 1]
+    ref_argv = [a for i, a in enumerate(argv)
+                if a != "--shards" and argv[i - 1] != "--shards"]
+    want = _masked(_reference(monkeypatch, capsys, ref_argv + ["--serve"]))
+    got = _masked(_port(capsys, argv))
+    assert got[1] == f"mesh: {shards} shards on cpu×{shards}"
+    assert any(f"on {shards}-shard mesh:" in ln for ln in got)
+    assert f"waves_mesh:shardx{shards}" in "\n".join(got)
+    got, want = _single_device_words(got), _single_device_words(want)
+    assert got[:2] == want[:2]      # the graph and the throughput lines
+    assert sorted(got) == sorted(want)   # telemetry keys sort by their layout words
 
 
 def test_default_device_is_cuda_and_raises_without_a_gpu(monkeypatch):

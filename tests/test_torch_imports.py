@@ -47,7 +47,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models", "repro_torch.models.decode", "repro_torch.serving",
             "repro_torch.launch.serve", "repro_torch.launch.ppr_run",
             "repro_torch.ppr_serving", "repro_torch.autotune", "repro_torch.obs",
-            "repro_torch.ppr_serving.http"]
+            "repro_torch.ppr_serving.http", "repro_torch.launch.mesh",
+            "repro_torch.configs.ppr_paper"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m == 'repro' or m.startswith('repro.'))\n"

@@ -273,7 +273,6 @@ def test_later_slice_calls_raise_not_implemented():
     g = _port(_graph(v=60, e=200))
     svc = TService(device=CPU)
     svc.register_graph("g", g)
-    for call in (lambda: svc.register_graph("m", g, mesh=object()),
-                 lambda: svc.serve([]), lambda: svc.pump(), lambda: svc.drain()):
+    for call in (lambda: svc.serve([]), lambda: svc.pump(), lambda: svc.drain()):
         with pytest.raises(NotImplementedError):
             call()
