@@ -125,7 +125,22 @@ exits non-zero.  It prints, in order:
    states and top-K raw-equal, wave p50 each, stream bytes; (g) ``ppr_run
    --serve --shards 4`` as a subprocess, its count lines equal to phase
    8's ``--serve``;
-11. a ``{"kernels": [...]}`` JSON line, then the card line, then the
+11. the LM families at full width, after phase 7 (float32 masters drawn
+   on the card from seed 0; mixtral-8x7b and moonshot-v1-16b-a3b cut to 8
+   layers, gemma3-4b, mamba2-1.3b and zamba2-1.2b whole): in float32, (1)
+   at B = 1 decode against forward (MoE without capacity drops, routes
+   pinned to forward's at float32 gate ties), (2) gemma3-4b's rolling
+   window cache against the full one over a prompt of 1,536 and 16 steps,
+   with both caches' bytes, (3) layer 0's MoE on its real inputs at
+   capacity factors 1.25 and 0.5: the card's routing and COO dispatch
+   against the CPU's, moe_ffn against float64, the dropped entries, (4)
+   ``ssd_chunked`` at mamba2's layer width against a float64 recurrence,
+   (5) ``ServingEngine`` against per-request greedy; then bf16 serving of
+   8 requests in one wave, 64 new tokens each: tokens/s, prefill ms,
+   decode-step ms p50/p95 over 2 timed passes, the busy share of a
+   profiled pass, peak memory, and gemma3-4b's decode step with rolling
+   buffers;
+12. a ``{"kernels": [...]}`` JSON line, then the card line, then the
    ``{"ok": true, ...}`` line last.
 
 Everything too long for the end of the output goes to
@@ -133,6 +148,7 @@ Everything too long for the end of the output goes to
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2985,12 +3001,15 @@ LOGIT_TOL = dict(rtol=2e-3, atol=2e-4)   # the reference's decode-vs-forward tol
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_PASSES = 32, 1024, 128, 3
 
 
-def _greedy(torch, api, params, prompt, n_new, max_len):
-    """Per-request greedy decode; returns (tokens, top-2 logit gap per step)."""
+def _greedy(torch, api, params, prompt, n_new, max_len, logits_out=None):
+    """Per-request greedy decode; returns (tokens, top-2 logit gap per step),
+    and appends each step's logits to ``logits_out`` where given."""
     cache = api.init_cache(1, max_len)
     logits, cache = api.prefill(params, {"tokens": prompt[None]}, cache)
     toks, gaps, pos = [], [], prompt.shape[0]
     for _ in range(n_new):
+        if logits_out is not None:
+            logits_out.append(logits[0])
         top2 = torch.topk(logits[0], 2).values
         toks.append(int(logits[0].argmax()))
         gaps.append(float(top2[0] - top2[1]))
@@ -3211,6 +3230,502 @@ def lm_serving_phase(torch, np, dev, passes=5):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the LM families at full width
+# ---------------------------------------------------------------------------
+# arch, layers on the card (None: all of them), bf16 serving prompt, float32
+# check prompt.  mixtral's 32 layers hold 187 GB of float32 masters and
+# moonshot's 48 hold 112 GB, against the card's 80 GB: 8 layers each.
+FAMILY_CASES = [("gemma3-4b", None, 2048, 1536),
+                ("mixtral-8x7b", 8, 1024, 512),
+                ("moonshot-v1-16b-a3b", 8, 1024, 512),
+                ("mamba2-1.3b", None, 1024, 512),
+                ("zamba2-1.2b", None, 1024, 512)]
+FAMILY_BATCH, FAMILY_NEW, FAMILY_PASSES = 8, 64, 2
+WINDOW_TOL = dict(rtol=2e-4, atol=2e-5)    # tests/test_windowed_cache.py:42
+MOE_TOL = dict(rtol=2e-4, atol=2e-5)       # tests/test_moe.py:46
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)       # tests/test_ssd.py:44, chunked vs naive
+MOE_TOKENS, SSD_LEN, SSD_CHUNK = 512, 1024, 256
+
+
+def _timed(torch, fn, sink):
+    """``fn`` with its host-clock ms, to a synchronize, appended to ``sink``."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t) * 1e3)
+        return r
+    return run
+
+
+def _nbytes(cache) -> int:
+    if isinstance(cache, dict):
+        return sum(_nbytes(v) for v in cache.values())
+    if isinstance(cache, list):
+        return sum(_nbytes(v) for v in cache)
+    return cache.numel() * cache.element_size()
+
+
+class _PinnedRoutes:
+    """``models.moe.route`` pinned to the forward pass's experts.
+
+    Forward over S + n tokens and prefill over S (or a decode step over 1)
+    compute each token's router logits in GEMMs of other shapes, so their
+    float32 gates differ in the last bits, and where a token's k-th and
+    (k+1)-th gates lie that close (64 experts, top-6, 8 layers: a few
+    tokens), the two paths route it differently and its output moves by
+    ~1e-3.  Inside ``record()`` each call's experts are kept; inside
+    ``replay(start)`` a call takes the recorded experts of the same tokens,
+    with gate values from its own gates, and fails unless every route it
+    overrides is such a tie: the gates it swaps within ``tol``."""
+
+    def __init__(self, torch, moe, tol=1e-5):
+        self.torch, self.moe, self.tol = torch, moe, tol
+        self.calls, self.start, self.n, self.pinned = [], None, 0, 0
+
+    def __enter__(self):
+        self.route, self.moe.route = self.moe.route, self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def at(self, start):
+        self.start, self.n = start, 0
+
+    def _route(self, x, router, cfg):
+        torch = self.torch
+        val, idx = self.route(x, router, cfg)
+        if self.start is None:
+            self.calls.append(idx)
+            return val, idx
+        want = self.calls[self.n][:, self.start:self.start + x.shape[1]]
+        self.n += 1
+        gates = torch.softmax((x @ router.to(x.dtype)).to(torch.float32), dim=-1)
+        for b, t in ((idx.sort(-1).values != want.sort(-1).values).any(-1)).nonzero().tolist():
+            own, pin = set(idx[b, t].tolist()), set(want[b, t].tolist())
+            gap = float(gates[b, t, sorted(own - pin)].max() - gates[b, t, sorted(pin - own)].min())
+            if gap > self.tol:
+                _fail(f"{cfg.name}: token {self.start + t} routes to {sorted(own)} here and "
+                      f"to {sorted(pin)} in forward, gates {gap:.3e} apart (no tie)")
+            self.pinned += 1
+        top = gates.gather(-1, want)
+        return top / top.sum(-1, keepdim=True).clamp_min(1e-9), want
+
+
+def _cached_logits(api, params, toks, s, steps, window_cache=False, pins=None):
+    """Prefill ``toks[:, :s]``, then ``steps`` decode steps; the logits of
+    each and the cache's bytes.  ``pins``: MoE routes pinned to forward's."""
+    cache = api.init_cache(toks.shape[0], s + steps, window_cache=window_cache)
+    if pins:
+        pins.at(0)
+    logits, cache = api.prefill(params, {"tokens": toks[:, :s]}, cache)
+    outs = [logits]
+    for t in range(steps):
+        if pins:
+            pins.at(s + t)
+        logits, cache = api.decode_step(params, toks[:, s + t:s + t + 1], s + t, cache)
+        outs.append(logits)
+    return outs, _nbytes(cache)
+
+
+def _decode_vs_forward(torch, np, api, params, cfg, s, rng):
+    """(1) at B = 1: prefill ``s`` tokens and decode 4 (16 where a local
+    window binds), each step's logits against forward's over a length n that
+    ``ssd_chunked`` takes (a multiple of 256); MoE routes pinned to
+    forward's at float32 ties (``_PinnedRoutes``).
+
+    Forward itself rounds by length on CUDA (a softmax row or a scan of
+    another size associates its sum otherwise), and a deep random-init SSM
+    stack amplifies those ~1e-7 seeds: so forward over ``s`` tokens is
+    compared with forward over n at position s − 1 (the floor), prefill's
+    logits with forward over ``s`` (the same shapes) within the reference's
+    tolerance, and each step with forward over n within that tolerance or,
+    where the floor exceeds it, within twice the floor.  Returns the decode
+    logits, the tokens, the full cache's bytes and the errors."""
+    from repro_torch.models import moe
+
+    steps = 16 if any(0 < w < s for w in cfg.layer_pattern) else 4
+    n = -(-(s + steps) // 256) * 256
+    toks = rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32)
+    pins = _PinnedRoutes(torch, moe) if cfg.num_experts else None
+    with pins or contextlib.nullcontext():
+        full = api.forward(params, {"tokens": toks})
+        if pins:
+            pins.at(0)
+        short = api.forward(params, {"tokens": toks[:, :s]})[:, -1]
+        dec, nbytes = _cached_logits(api, params, toks, s, steps, pins=pins)
+    same = float((dec[0] - short).abs().max())
+    floor = float((full[:, s - 1] - short).abs().max())
+    if not torch.allclose(dec[0], short, **LOGIT_TOL):
+        _fail(f"{cfg.name} f32: prefill's logits differ from forward over the same "
+              f"{s} tokens by {same:.3e} (rtol {LOGIT_TOL['rtol']}, atol {LOGIT_TOL['atol']})")
+    err = 0.0
+    for t, got in enumerate(dec):
+        want = full[:, s - 1 + t]
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        if not (torch.allclose(got, want, **LOGIT_TOL) or e <= 2 * floor):
+            _fail(f"{cfg.name} f32: decode step {t} differs from forward by {e:.3e} "
+                  f"(rtol {LOGIT_TOL['rtol']}, atol {LOGIT_TOL['atol']}; forward's own "
+                  f"floor between {s} and {n} tokens {floor:.3e})")
+    del full
+    return dec, toks, nbytes, dict(err=err, same_length_err=same, length_floor=floor,
+                                   pinned=pins.pinned if pins else 0)
+
+
+def _near_tie(torch, gates, k, tol) -> bool:
+    """Whether the first k+1 sorted gates of a token hold two within ``tol``
+    (a top-k that two float32 routers may order differently)."""
+    top = torch.sort(gates, descending=True).values[:k + 1]
+    return bool((top[:-1] - top[1:]).min() <= tol)
+
+
+def _moe_dispatch(torch, np, params, cfg, toks):
+    """(3) layer 0's MoE on its real inputs (B = 1, S = 512), at the config's
+    capacity factor and at 0.5: the card's routing equals the CPU port's
+    outside float32 near-ties, the card's COO dispatch of its gates is
+    array-equal to the CPU's of the same gates, and moe_ffn is within
+    2e-4 / 2e-5 of the same routing run in float64 on the card."""
+    from repro_torch.models import moe
+    from repro_torch.models.attention import attention
+    from repro_torch.models.common import norm
+
+    dev = params.embed.device
+    blk = params.layers[0]
+    h = params.embed_tokens(torch.as_tensor(toks[:, :MOE_TOKENS], device=dev).long(), cfg)
+    a = attention(norm(h, blk["ln1"], cfg.norm), blk["attn"], cfg, window=cfg.layer_pattern[0])
+    if cfg.post_norms:
+        a = norm(a, blk["post_ln1"], cfg.norm)
+    mi = norm(h + a, blk["ln2"], cfg.norm)
+    p, e, k = blk["moe"], cfg.num_experts, cfg.experts_per_token
+    mi_c, router_c = mi.cpu(), p["router"].cpu()
+    gates = torch.softmax((mi @ p["router"]).float(), -1)[0].cpu()
+    gates_c = torch.softmax((mi_c @ router_c).float(), -1)[0]
+    gate_err = float((gates - gates_c).abs().max())
+    out = dict(gate_max_abs_err=gate_err)
+    for cf in (cfg.moe_capacity_factor, 0.5):
+        cap = moe._capacity(MOE_TOKENS, cfg, cf)
+        val, idx = moe.route(mi, p["router"], cfg)
+        _, idx_c = moe.route(mi_c, router_c, cfg)
+        differ = (idx.cpu() != idx_c).any(-1)[0].nonzero().flatten().tolist()
+        for t in differ:
+            if not _near_tie(torch, gates_c[t], k, 4 * gate_err):
+                _fail(f"{cfg.name} layer 0: the card routes token {t} to "
+                      f"{idx[0, t].tolist()}, the CPU to {idx_c[0, t].tolist()}, "
+                      f"with no gate tie within {4 * gate_err:.2e}")
+        got = moe.dispatch(idx, val, cap, e, torch.float32)
+        want = moe.dispatch(idx.cpu(), val.cpu(), cap, e, torch.float32)
+        for name, g_, w_ in zip(("slots", "token ids", "gate values"), got, want):
+            if not torch.equal(g_.cpu(), w_):
+                _fail(f"{cfg.name} layer 0, capacity factor {cf}: the card's dispatch "
+                      f"{name} differ from the CPU's")
+        slot, ts, gs = got
+        dropped = int((want[0] == e * cap).sum())
+        if cf < 1 and not dropped:
+            _fail(f"{cfg.name}: capacity factor {cf} dropped no token")
+        y = moe.moe_ffn(mi, p, cfg, capacity_factor=cf)
+        p64 = {n: t.double() for n, t in p.items()}
+        y64 = moe.combine(moe.experts(mi.double(), p64, cfg, cap, slot, ts), slot, ts,
+                          gs.double(), MOE_TOKENS)
+        del p64
+        err = float((y.double() - y64).abs().max())
+        if not torch.allclose(y.double(), y64, **MOE_TOL):
+            _fail(f"{cfg.name} layer 0: moe_ffn at capacity factor {cf} is {err:.3e} "
+                  f"from float64 (rtol {MOE_TOL['rtol']}, atol {MOE_TOL['atol']})")
+        out[f"cf_{cf}"] = dict(capacity=cap, dropped=dropped, entries=MOE_TOKENS * k,
+                               route_near_ties=len(differ), f64_max_abs_err=err)
+    return out
+
+
+def _ssd_scan(torch, np, cfg, dev):
+    """(4) ``ssd_chunked`` at one mamba2 layer's width (B = 1, S = 1,024,
+    chunks of 256) in float32 against the step-by-step recurrence in float64
+    on the card; inputs drawn as ``tests/test_ssd.py`` draws them."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    rng = np.random.default_rng(11)
+    b, s, h, p, n = 1, SSD_LEN, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    x, dt, A, B, C = (torch.from_numpy(a).to(dev) for a in (
+        rng.standard_normal((b, s, h, p)), rng.random((b, s, h)) * 0.5, -rng.random(h),
+        rng.standard_normal((b, s, 1, n)), rng.standard_normal((b, s, 1, n))))
+    y, final = ssd_chunked(*(a.float() for a in (x, dt, A, B, C)), SSD_CHUNK)
+    state = torch.zeros((b, h, p, n), dtype=torch.float64, device=dev)
+    ys = torch.zeros((b, s, h, p), dtype=torch.float64, device=dev)
+    for t in range(s):
+        state = (state * torch.exp(dt[:, t] * A[None])[..., None, None]
+                 + (dt[:, t][..., None] * x[:, t])[..., None]
+                 * B[:, t].repeat_interleave(h, 1)[:, :, None, :])
+        ys[:, t] = torch.einsum("bhpn,bhn->bhp", state, C[:, t].repeat_interleave(h, 1))
+    errs = [float((y.double() - ys).abs().max()), float((final.double() - state).abs().max())]
+    if not (torch.allclose(y.double(), ys, **SSD_TOL)
+            and torch.allclose(final.double(), state, **SSD_TOL)):
+        _fail(f"{cfg.name}: ssd_chunked is {errs} (y, final state) from the float64 "
+              f"recurrence (rtol {SSD_TOL['rtol']}, atol {SSD_TOL['atol']})")
+    return dict(heads=h, head_dim=p, state=n, length=s, chunk=SSD_CHUNK,
+                y_max_abs_err=errs[0], final_max_abs_err=errs[1],
+                y_max_abs=float(ys.abs().max()))
+
+
+def _served_equals_greedy(torch, np, api, params, cfg, floor, rng):
+    """(5) ``ServingEngine``'s tokens (3 requests of 8 tokens, 5 new, one
+    wave) against per-request greedy decoding (B = 1).  The engine's logits
+    for each request, up to its first differing token, must equal greedy's
+    as check (1) holds decode to forward (the reference's tolerance, or
+    twice forward's own ``floor``); a token may then differ only where
+    greedy's top-2 gap is within twice that measured difference (the least
+    gap two logit vectors that far apart can order otherwise).  Returns the
+    smallest gap and the largest difference."""
+    from repro_torch.serving import Request, ServingEngine
+
+    seen = []
+
+    def keep(fn):
+        def run(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            seen.append(logits)
+            return logits, cache
+        return run
+
+    prompts = [rng.integers(0, cfg.vocab_size, 8).astype(np.int32) for _ in range(3)]
+    served = ServingEngine(api._replace(prefill=keep(api.prefill),
+                                        decode_step=keep(api.decode_step)),
+                           params, batch_size=3, max_len=64).serve(
+        [Request(uid=i, prompt=p, max_new_tokens=5) for i, p in enumerate(prompts)])
+    min_gap, worst = float("inf"), 0.0
+    for i, p in enumerate(prompts):
+        own = []
+        manual, gaps = _greedy(torch, api, params, p, 5, 64, logits_out=own)
+        min_gap = min(min_gap, min(gaps))
+        err = 0.0
+        for t, (x, y) in enumerate(zip(served[i], manual)):
+            err = max(err, float((seen[t][i] - own[t]).abs().max()))
+            if not (torch.allclose(seen[t][i], own[t], **LOGIT_TOL) or err <= 2 * floor):
+                _fail(f"{cfg.name}: the engine's logits for request {i} at step {t} are "
+                      f"{err:.3e} from per-request greedy's")
+            if x != y:
+                print(f"[families] {cfg.name} request {i} step {t}: engine {x} vs greedy "
+                      f"{y}, top-2 logit gap {gaps[t]:.3e}, logits {err:.3e} apart")
+                if gaps[t] > 2 * err:
+                    _fail(f"{cfg.name}: ServingEngine tokens differ from per-request greedy")
+                break     # a tie within the error; later tokens may differ
+        worst = max(worst, err)
+    return min_gap, worst
+
+
+def _busy_share(torch, run):
+    """Device-busy share of one ``run()`` under ``torch.profiler`` (device
+    activity only): the union of the kernels' intervals over the pass's host
+    clock, from a synchronize to a synchronize.  Reads the raw Kineto events
+    (an LM pass makes ~10^6; building ``prof.events()`` takes minutes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        run()
+        torch.cuda.synchronize()
+        window = time.perf_counter_ns() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda and not e.is_user_annotation())
+    busy, cur_s, cur_e = 0, None, None
+    for a, b in dev:
+        if cur_e is None or a > cur_e:
+            busy += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    if not dev:
+        _fail("the profiled pass recorded no device event")
+    return dict(window_ms=window / 1e6, device_busy_ms=busy / 1e6,
+                device_busy_share=busy / window, device_events=len(dev))
+
+
+def _serve_bf16(torch, np, api16, params, cfg, prompt, rng, window_cache=False):
+    """bf16 serving: one wave of FAMILY_BATCH requests of ``prompt`` tokens,
+    FAMILY_NEW new tokens each; a warm-up, FAMILY_PASSES timed passes and one
+    under ``torch.profiler``; with ``window_cache`` one more timed pass on
+    rolling buffers."""
+    import dataclasses
+    import functools
+
+    from repro_torch.serving import Request, ServingEngine
+
+    prefill_ms, decode_ms = [], []
+    api_t = api16._replace(prefill=_timed(torch, api16.prefill, prefill_ms),
+                           decode_step=_timed(torch, api16.decode_step, decode_ms))
+    b, n_new = FAMILY_BATCH, FAMILY_NEW
+    engine = ServingEngine(api_t, params, batch_size=b, max_len=prompt + n_new)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, prompt).astype(np.int32),
+                    max_new_tokens=n_new) for i in range(b)]
+    engine.serve([dataclasses.replace(r, max_new_tokens=4) for r in reqs])  # warm-up
+    prefill_ms.clear()
+    decode_ms.clear()
+    times = []
+    for _ in range(FAMILY_PASSES):
+        t = time.perf_counter()
+        res = engine.serve(reqs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if (sum(len(r) for r in res.values()) != b * n_new
+                or not all(0 <= x < cfg.padded_vocab for r in res.values() for x in r)):
+            _fail(f"{cfg.name} bf16 serving did not return {n_new} in-vocabulary tokens "
+                  f"per request")
+    per = [b * n_new / t for t in times]
+    out = dict(batch=b, prompt=prompt, new_tokens=n_new, passes=FAMILY_PASSES,
+               tokens_per_s=b * n_new * FAMILY_PASSES / sum(times),
+               tokens_per_s_pass_range=[min(per), max(per)], pass_s=times,
+               prefill_ms=prefill_ms[:],
+               decode_step_ms_p50=float(np.percentile(decode_ms, 50)),
+               decode_step_ms_p95=float(np.percentile(decode_ms, 95)),
+               decode_steps=len(decode_ms))
+    t0 = time.perf_counter()
+    out["profile"] = _busy_share(torch, lambda: engine.serve(reqs))
+    out["profile_s"] = time.perf_counter() - t0
+    if window_cache:
+        decode_ms.clear()
+        api_w = api_t._replace(init_cache=functools.partial(api16.init_cache,
+                                                            window_cache=True))
+        res_w = ServingEngine(api_w, params, batch_size=b, max_len=prompt + n_new).serve(reqs)
+        out["window_cache_decode_step_ms_p50"] = float(np.percentile(decode_ms, 50))
+        out["window_cache_tokens_differing"] = sum(
+            x != y for i in res for x, y in zip(res[i], res_w[i]))
+    return out
+
+
+def lm_families_phase(torch, np, dev):
+    """Phase 11: gemma3-4b, mixtral-8x7b, moonshot-v1-16b-a3b, mamba2-1.3b
+    and zamba2-1.2b at full width (mixtral and moonshot cut to 8 layers),
+    float32 masters drawn on the card from seed 0: the float32 checks, then
+    bf16 serving timed."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, layers, prompt, s_check in FAMILY_CASES:
+        t_model = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        full_layers = cfg.num_layers
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers,
+                                      layer_pattern=cfg.layer_pattern[:layers])
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        api32 = build_model(cfg32, device=dev)
+        t0 = time.perf_counter()
+        params = api32.init_params(torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        r = dict(layers=cfg.num_layers, full_layers=full_layers, parameters=n_params,
+                 f32_gb=n_params * 4 / 1e9, init_s=time.perf_counter() - t0)
+        print(f"[families] {arch}: {cfg.num_layers} of {full_layers} layers, {n_params} "
+              f"parameters, {r['f32_gb']:.2f} GB float32, drawn in {r['init_s']:.2f} s")
+        rng = np.random.default_rng(19)
+        # (1) decode against forward; MoE without capacity drops (capacity
+        # factor E, as the reference's smoke configs): at 1.25 a forward over
+        # S + n tokens and a prefill over S drop different tokens
+        api_chk = api32
+        if cfg.num_experts:
+            api_chk = build_model(dataclasses.replace(
+                cfg32, moe_capacity_factor=float(cfg.num_experts)), device=dev)
+        dec, toks, full_bytes, chk = _decode_vs_forward(torch, np, api_chk, params, cfg32,
+                                                        s_check, rng)
+        err = chk["err"]
+        r.update(decode_vs_forward=chk, check_prompt=s_check, check_steps=len(dec) - 1)
+        print(f"[families] {arch} (1) f32, B=1, prompt {s_check}: {len(dec) - 1} decode "
+              f"steps vs forward, max abs err {err:.3e}; prefill vs forward over the same "
+              f"{s_check} tokens {chk['same_length_err']:.3e}; forward's own floor between "
+              f"{s_check} and {-(-(s_check + len(dec) - 1) // 256) * 256} tokens "
+              f"{chk['length_floor']:.3e}"
+              + (f"; {chk['pinned']} routes pinned at float32 gate ties"
+                 if cfg.num_experts else ""))
+        # (2) the rolling window cache against the full one, where a window
+        # binds (gemma3-4b's 1,024; mixtral's 4,096 exceeds these lengths)
+        binds = any(0 < w < s_check for w in cfg.layer_pattern)
+        if binds:
+            win, win_bytes = _cached_logits(api_chk, params, toks, s_check, len(dec) - 1,
+                                            window_cache=True)
+            werr = max(float((a - b).abs().max()) for a, b in zip(dec, win))
+            for t, (a, b) in enumerate(zip(dec, win)):
+                if not torch.allclose(b, a, **WINDOW_TOL):
+                    _fail(f"{arch}: window_cache=True logits at step {t} differ from the "
+                          f"full cache's by {werr:.3e}")
+            r.update(window_cache_max_abs_err=werr, cache_bytes_full=full_bytes,
+                     cache_bytes_window=win_bytes)
+            print(f"[families] {arch} (2) window_cache=True vs full over prefill + "
+                  f"{len(dec) - 1} steps (the buffers wrap): max abs err {werr:.3e}; "
+                  f"cache bytes {win_bytes} vs {full_bytes} (max_len {s_check + len(dec) - 1})")
+            del win
+        del dec
+        # (3) MoE dispatch on layer 0's inputs
+        if cfg.num_experts:
+            del api_chk
+            r["moe"] = _moe_dispatch(torch, np, params, cfg32, toks)
+            for cf in (cfg.moe_capacity_factor, 0.5):
+                m = r["moe"][f"cf_{cf}"]
+                print(f"[families] {arch} (3) layer-0 MoE, S={MOE_TOKENS}, capacity factor "
+                      f"{cf} (capacity {m['capacity']}): dispatch on the card = the CPU's; "
+                      f"{m['dropped']} of {m['entries']} entries dropped; moe_ffn vs "
+                      f"float64 max abs err {m['f64_max_abs_err']:.3e}; "
+                      f"{m['route_near_ties']} near-tie routes")
+        # (4) the SSD scan
+        if cfg.ssm_state and not cfg.shared_attn_every:
+            r["ssd"] = _ssd_scan(torch, np, cfg32, dev)
+            print(f"[families] {arch} (4) ssd_chunked, {r['ssd']['heads']} heads x "
+                  f"{r['ssd']['head_dim']}, state {r['ssd']['state']}, S={SSD_LEN}, chunk "
+                  f"{SSD_CHUNK}, f32 vs float64 recurrence: max abs err "
+                  f"{r['ssd']['y_max_abs_err']:.3e} (max |y| {r['ssd']['y_max_abs']:.1f}), "
+                  f"final state {r['ssd']['final_max_abs_err']:.3e}")
+        # (5) served tokens against per-request greedy
+        gap, gerr = _served_equals_greedy(torch, np, api32, params, cfg32,
+                                          chk["length_floor"], rng)
+        r.update(greedy_min_top2_gap=gap, greedy_logits_max_abs_err=gerr)
+        print(f"[families] {arch} (5) f32 engine (B=3) == per-request greedy (B=1): "
+              f"logits {gerr:.3e} apart, smallest top-2 gap {gap:.3e}")
+        r["checks_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        r["checks_s"] = time.perf_counter() - t_model
+        # bf16 serving, timed
+        api16 = build_model(cfg, device=dev)
+        sv = _serve_bf16(torch, np, api16, params, cfg, prompt, rng, window_cache=binds)
+        sv["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        r["serving"] = sv
+        prof = sv["profile"]
+        print(f"[families] {arch} bf16 serve: {FAMILY_BATCH} requests in one wave, prompt "
+              f"{prompt}, {FAMILY_NEW} new tokens, {FAMILY_PASSES} timed passes: "
+              f"{sv['tokens_per_s']:.1f} tokens/s (passes {sv['tokens_per_s_pass_range'][0]:.1f}"
+              f"-{sv['tokens_per_s_pass_range'][1]:.1f}); prefill (B={FAMILY_BATCH}, "
+              f"S={prompt}) {statistics.median(sv['prefill_ms']):.2f} ms; decode step p50/p95 "
+              f"{sv['decode_step_ms_p50']:.2f}/{sv['decode_step_ms_p95']:.2f} ms; device busy "
+              f"{100 * prof['device_busy_share']:.1f}% of a profiled pass "
+              f"({prof['device_busy_ms']:.1f} of {prof['window_ms']:.1f} ms); peak memory "
+              f"{sv['peak_mem_gb']:.2f} GB")
+        if "window_cache_decode_step_ms_p50" in sv:
+            print(f"[families] {arch} bf16 decode step p50 {sv['decode_step_ms_p50']:.2f} ms "
+                  f"with the full cache, {sv['window_cache_decode_step_ms_p50']:.2f} ms with "
+                  f"window_cache=True ({sv['window_cache_tokens_differing']} of "
+                  f"{FAMILY_BATCH * FAMILY_NEW} served tokens differ between the two)")
+        r["wall_s"] = time.perf_counter() - t_model
+        print(f"[families] {arch} took {r['wall_s']:.1f} s: checks {r['checks_s']:.1f}, "
+              f"the profiled pass {sv['profile_s']:.1f}")
+        out[arch] = r
+        del params, api32, api16
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[families] phase 11 took {out['wall_s']:.1f} s ("
+          + ", ".join(f"{a} {out[a]['wall_s']:.1f}" for a, *_ in FAMILY_CASES) + ")")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     try:
         import torch
@@ -3279,6 +3794,7 @@ def main() -> int:
     spmv_counts = spmv_path_phase(torch, np, graphs["gnp_2e5"], dev)
     lm_rows, tensor_cores = lm_kernel_phase(torch, dev)
     lm = lm_serving_phase(torch, np, dev)
+    families = lm_families_phase(torch, np, dev)
 
     print("[times] kernel graph domain: ms plain_ms bound_ms library_ms "
           "function_bound_ms bound_share | device_ms device_bound_share "
@@ -3387,6 +3903,7 @@ def main() -> int:
         observability={k: v for k, v in obs.items() if k != "deep_rows"},
         sharded={k: v for k, v in sharded.items() if k not in ("rows", "driver_stdout")},
         lm_kernel_rows=lm_rows, tensor_cores=tensor_cores, lm_serving=lm,
+        lm_families=families,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -50,11 +50,14 @@ def _leaves(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]
 
 def lm_params_from_jax(params_np: Dict[str, Any], cfg: ModelConfig) -> Transformer:
     """The port's ``Transformer``, on the CPU, from the reference's parameter
-    pytree (leaves as numpy arrays; dense family).
+    pytree (leaves as numpy arrays; the decoder-only families).
 
     The reference stacks each pattern segment's layers as
-    ``params["segments"][s][key][rep, j]``; layer ``i`` of the port is the
-    ``i``-th (segment, rep, j) in order.  Raises on any missing or extra key."""
+    ``params["segments"][s][key][rep, j]`` (expert tensors ``[E, D, F]``
+    behind the two stack axes; mamba layers as ``segments[0]`` of group
+    ``(MAMBA,)``); layer ``i`` of the port is the ``i``-th (segment, rep, j)
+    in order.  Top-level entries (``embed``, ``final_norm``, zamba2's
+    ``shared_attn``) keep their names.  Raises on any missing or extra key."""
     state = dict(_leaves({k: v for k, v in params_np.items() if k != "segments"}))
     i = 0
     for seg, (group, reps) in zip(params_np["segments"], find_segments(cfg.layer_pattern)):

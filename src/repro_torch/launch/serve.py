@@ -1,12 +1,15 @@
 """Serving launcher: batched greedy decoding with the slot-based engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --requests 32 \
         --batch 32 --prompt-len 1024 --new-tokens 128 --max-len 1152 --profile
 
-Weights are drawn from ``torch.Generator(device).manual_seed(0)``; the
-full-width gemma-2b holds 10.0 GB of float32 masters on the card.
+``--arch`` takes every decoder-only architecture of ``configs/archs.py``
+(dense with global or local-window layers, moe, ssm, hybrid).  Weights are
+drawn from ``torch.Generator(device).manual_seed(0)`` as float32 masters on
+the device (``cfg.param_count()`` × 4 bytes: gemma-2b 10.0 GB; mixtral-8x7b
+187 GB, more than one card holds).
 ``--profile`` serves the requests once more under ``torch.profiler`` and
 prints the device's busy share of that pass and its device time by operator
 and by kernel.

@@ -1,11 +1,13 @@
-"""Attention: GQA/MQA global attention with softcap and qk-norm, query-chunked
-prefill and cached decode (counterpart of ``repro.models.attention``).
+"""Attention: GQA/MQA, local (sliding-window) and global, softcap, qk-norm,
+query-chunked prefill and cached decode, full or rolling-window caches
+(counterpart of ``repro.models.attention``).
 
-The global-attention path only: local windows over a sliced K/V, the rolling
-window cache and cross-attention raise ``NotImplementedError`` naming their
-slice.  ``_attend`` keeps the reference's einsum form (scores in the input
-dtype, softmax in float32); the model path does not call the flash kernel,
-as the reference's does not call its Pallas one.
+Local layers slice K/V to ``window + qc`` positions per query chunk, as the
+reference does (there a ``dynamic_slice``, here plain slicing: the port is
+eager).  Cross-attention raises ``NotImplementedError`` naming its slice.
+``_attend`` keeps the reference's einsum form (scores in the input dtype,
+softmax in float32); the model path does not call the flash kernel, as the
+reference's does not call its Pallas one.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, rmsnorm, rope, softcap
 
 __all__ = ["Attention", "attention", "prefill_kv", "decode_attention",
-           "decode_attention_windowed", "cross_attention_cached"]
+           "decode_attention_windowed", "fill_windowed_cache",
+           "cross_attention_cached"]
 
 
 class Attention(nn.ParameterDict):
@@ -77,10 +80,37 @@ def _attend(q, k, v, qpos, kpos, cfg: ModelConfig, causal: bool) -> torch.Tensor
     return out.reshape(b, qc, h, hd)
 
 
-def _attend_window(q_chunk, k, v, chunk_start, cfg, causal, window):
-    raise NotImplementedError(
-        f"local-window attention (window={window} < sequence) over sliced K/V "
-        f"is not ported yet: it comes with the windowed-attention slice")
+def _attend_window(q_chunk, k, v, chunk_start: int, cfg: ModelConfig, causal: bool,
+                   window: int) -> torch.Tensor:
+    """Local attention: slice K/V to [chunk_start-window, chunk_start+qc),
+    clipped into the sequence — ``window + qc`` positions, sub-quadratic."""
+    qc = q_chunk.shape[1]
+    s = k.shape[1]
+    span = min(window + qc, s)
+    start = min(max(chunk_start - window, 0), s - span)
+    qpos = chunk_start + torch.arange(qc, device=q_chunk.device)
+    kpos = start + torch.arange(span, device=q_chunk.device)
+    return _attend_masked_window(q_chunk, k[:, start:start + span],
+                                 v[:, start:start + span], qpos, kpos, cfg, causal, window)
+
+
+def _attend_masked_window(q, k, v, qpos, kpos, cfg: ModelConfig, causal: bool,
+                          window: int) -> torch.Tensor:
+    """``_attend`` with the window mask ``qpos − kpos < window``."""
+    b, qc, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, qc, kvh, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(torch.float32) / math.sqrt(hd)
+    scores = softcap(scores, cfg.attn_softcap)
+    if causal:
+        mask = qpos[:, None] >= kpos[None, :]
+    else:
+        mask = torch.ones((qc, k.shape[1]), dtype=torch.bool, device=q.device)
+    mask &= qpos[:, None] - kpos[None, :] < window
+    scores = torch.where(mask[None, None, None], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", w, v).reshape(b, qc, h, hd)
 
 
 def attention(x, p, cfg: ModelConfig, *, window: int, causal: bool = True,
@@ -127,16 +157,26 @@ def decode_attention(x, p, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
 
     x [B, 1, D]; cache_k/v [B, Smax, KV, hd].  The new K/V row is written
     into the caches in place (the reference returns updated copies)."""
-    b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q, k_new, v_new = _project_qkv(x, p, cfg, positions)
-    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
-    smax = cache_k.shape[1]
-    kpos = torch.arange(smax, device=x.device)
+    q = _write_row(x, p, cfg, cache_k, cache_v, pos, pos)
+    kpos = torch.arange(cache_k.shape[1], device=x.device)
     valid = kpos <= pos
     if window:
         valid &= kpos > pos - window
+    return _attend_cached(x, q, p, cfg, cache_k, cache_v, valid), cache_k, cache_v
+
+
+def _write_row(x, p, cfg: ModelConfig, cache_k, cache_v, pos: int, slot: int):
+    """Project the token at ``pos`` and write its K/V row at ``slot``; → q."""
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _project_qkv(x, p, cfg, positions)
+    cache_k[:, slot:slot + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, slot:slot + 1] = v_new.to(cache_v.dtype)
+    return q
+
+
+def _attend_cached(x, q, p, cfg: ModelConfig, cache_k, cache_v, valid) -> torch.Tensor:
+    """One query row against the cache's ``valid`` slots, then ``wo``."""
+    b = x.shape[0]
     kvh, hd, h = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
     g = h // kvh
     qg = q.reshape(b, 1, kvh, g, hd)
@@ -147,13 +187,39 @@ def decode_attention(x, p, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", w,
                        cache_v.to(q.dtype)).reshape(b, 1, h * hd)
-    return out @ p["wo"].to(x.dtype), cache_k, cache_v
+    return out @ p["wo"].to(x.dtype)
 
 
-def decode_attention_windowed(x, p, cfg, cache_k, cache_v, pos, *, window):
-    raise NotImplementedError(
-        "decode against a rolling window buffer is not ported yet: it comes "
-        "with the windowed-attention slice")
+def decode_attention_windowed(x, p, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
+                              window: int):
+    """Local-attention decode against a rolling buffer [B, W, KV, hd] that
+    holds position ``p`` at slot ``p % W``; HBM cost O(window), not
+    O(max_len).  Returns (out, cache_k, cache_v), the row written in place."""
+    w = cache_k.shape[1]
+    q = _write_row(x, p, cfg, cache_k, cache_v, pos, pos % w)
+    # true position held by slot j: the largest p' ≤ pos with p' % w == j
+    # (``%`` on tensors is floor modulo, as jnp's)
+    j = torch.arange(w, device=x.device)
+    kpos = pos - ((pos - j) % w)
+    valid = (kpos >= 0) & (kpos > pos - window)
+    return _attend_cached(x, q, p, cfg, cache_k, cache_v, valid), cache_k, cache_v
+
+
+def fill_windowed_cache(cache_k, cache_v, k, v):
+    """Prefill a rolling buffer [B, W, KV, hd] from full-prompt K/V
+    [B, Sp, KV, hd] in place: the last W positions, each at slot
+    ``position % W``."""
+    w = cache_k.shape[1]
+    sp = k.shape[1]
+    if sp <= w:
+        cache_k[:, :sp] = k.to(cache_k.dtype)
+        cache_v[:, :sp] = v.to(cache_v.dtype)
+        return cache_k, cache_v
+    positions = sp - w + torch.arange(w, device=k.device)
+    slots = positions % w
+    cache_k[:, slots] = k[:, positions].to(cache_k.dtype)
+    cache_v[:, slots] = v[:, positions].to(cache_v.dtype)
+    return cache_k, cache_v
 
 
 def cross_attention_cached(x, p, cfg, cross_k, cross_v):

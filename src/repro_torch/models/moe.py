@@ -1,11 +1,18 @@
-"""Dense feed-forward (counterpart of ``repro.models.moe``, dense MLP only).
+"""Dense MLP and Mixture-of-Experts feed-forward (counterpart of
+``repro.models.moe``).
 
-Mixture-of-experts routing (the reference's COO-form dispatch) comes with the
-MoE slice; ``moe_ffn`` raises until then.
+MoE dispatch is the paper's COO SpMM: the token→expert-slot assignment is a
+sparse matrix with entries (dst = expert·capacity + rank, src = token, val =
+gate weight); dispatch multiplies it against the activations, combine
+multiplies its transpose.  As in the reference: tokens sorted by expert
+(stably: the rank within an expert, and with it which tokens the capacity
+drops, follows token order), capacity-bounded slots, scatter/gather and the
+gate-weighted combine.  Each batch row is dispatched on its own.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -13,7 +20,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import act_fn, dense_init
 
-__all__ = ["MLP", "init_mlp", "mlp", "moe_ffn"]
+__all__ = ["MLP", "MoE", "init_mlp", "init_moe", "mlp", "moe_ffn", "route",
+           "dispatch", "experts", "combine", "router_aux_loss"]
 
 
 class MLP(nn.ParameterDict):
@@ -46,6 +54,115 @@ def mlp(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     return h @ p["w_proj"].to(x.dtype) + p["b_proj"].to(x.dtype)
 
 
-def moe_ffn(x, p, cfg: ModelConfig, capacity_factor: float = 0.0):
-    raise NotImplementedError("mixture-of-experts feed-forward is not ported "
-                              "yet: it comes with the MoE slice")
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+class MoE(nn.ParameterDict):
+    """router [D, E]; w_gate/w_up [E, D, F]; w_down [E, F, D]; float32
+    masters drawn as ``dense_init``."""
+
+    def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
+                 device=None):
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+        p = {"router": dense_init((d, e), d, generator, device),
+             "w_gate": dense_init((e, d, f), d, generator, device),
+             "w_up": dense_init((e, d, f), d, generator, device),
+             "w_down": dense_init((e, f, d), f, generator, device)}
+        super().__init__({k: nn.Parameter(t, requires_grad=False) for k, t in p.items()})
+
+
+def init_moe(cfg: ModelConfig, generator: Optional[torch.Generator], device=None) -> MoE:
+    return MoE(cfg, generator, device)
+
+
+def _capacity(tokens: int, cfg: ModelConfig, capacity_factor: float) -> int:
+    c = math.ceil(tokens * cfg.experts_per_token * capacity_factor / cfg.num_experts)
+    return max(1, min(tokens, (c + 3) // 4 * 4))
+
+
+def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] → (gate values [B, S, k] float32, expert ids [B, S, k]):
+    softmax in float32, the top k renormalised.  A stable descending sort
+    breaks ties by the lower expert id, as ``jax.lax.top_k`` does."""
+    logits = x @ router.to(x.dtype)
+    gates = torch.softmax(logits.to(torch.float32), dim=-1)
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    top_val, top_idx = vals[..., :k], idx[..., :k]
+    return top_val / top_val.sum(-1, keepdim=True).clamp_min(1e-9), top_idx
+
+
+def dispatch(top_idx: torch.Tensor, top_val: torch.Tensor, cap: int, num_experts: int,
+             dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The COO build, per batch row: entries (dst = slot, src = token, val =
+    gate) in dst-major (ascending expert) order.  Returns (slot, token, gate),
+    each [B, S·k]; an entry past its expert's capacity gets the overflow slot
+    ``E·cap`` (dropped)."""
+    b, s, k = top_idx.shape
+    n = s * k
+    expert_flat = top_idx.reshape(b, n)
+    token_flat = torch.arange(s, device=top_idx.device).repeat_interleave(k)
+    gate_flat = top_val.reshape(b, n).to(dtype)
+    order = torch.argsort(expert_flat, dim=-1, stable=True)    # dst-major stream order
+    es = expert_flat.gather(1, order)
+    ts = token_flat[order]
+    gs = gate_flat.gather(1, order)
+    # rank within an expert = position in its sorted run (capacity = packet pad)
+    rank = torch.arange(n, device=top_idx.device) - torch.searchsorted(es, es, side="left")
+    slot = torch.where(rank < cap, es * cap + rank, num_experts * cap)
+    return slot, ts, gs
+
+
+def experts(x: torch.Tensor, p, cfg: ModelConfig, cap: int, slot, ts) -> torch.Tensor:
+    """Scatter the tokens into their slots [B, E, cap, D] and run every
+    expert's GLU on its slots (each expert's weights cast at the use)."""
+    b, _, d = x.shape
+    e = cfg.num_experts
+    rows = torch.arange(b, device=x.device)[:, None]
+    xe = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
+    xe[rows, slot] = x[rows, ts]      # the overflow row takes duplicates; discarded
+    xe = xe[:, :-1].reshape(b, e, cap, d)
+    h = act_fn(torch.einsum("becd,edf->becf", xe, p["w_gate"].to(x.dtype)), cfg.act)
+    h = h * torch.einsum("becd,edf->becf", xe, p["w_up"].to(x.dtype))
+    return torch.einsum("becf,efd->becd", h, p["w_down"].to(x.dtype))
+
+
+def combine(ye: torch.Tensor, slot, ts, gs, s: int) -> torch.Tensor:
+    """The transpose: out[t] = Σ gate · ye[slot] over token t's k entries,
+    in ascending expert order (the order in which the reference's scatter-add
+    applies them), so the sum is deterministic on the card."""
+    b, e, cap, d = ye.shape
+    flat = torch.cat([ye.reshape(b, e * cap, d), ye.new_zeros((b, 1, d))], dim=1)
+    # a stable sort by token keeps each token's entries in expert order
+    by_token = torch.argsort(ts, dim=-1, stable=True)
+    rows = torch.arange(b, device=ye.device)[:, None]
+    contrib = flat[rows, slot.gather(1, by_token)] * gs.gather(1, by_token)[..., None]
+    contrib = contrib.reshape(b, s, -1, d)
+    out = contrib[:, :, 0]
+    for j in range(1, contrib.shape[2]):
+        out = out + contrib[:, :, j]
+    return out
+
+
+def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig, capacity_factor: float = 0.0
+            ) -> torch.Tensor:
+    """x [B, S, D] → [B, S, D]; top-k routing with capacity, COO-form
+    dispatch.  The reference's ``constrain`` / ``moe_mode`` calls are
+    sharding annotations with no numeric effect; the port has no
+    counterpart (its ``distributed/`` is not ported)."""
+    s = x.shape[1]
+    cap = _capacity(s, cfg, capacity_factor or cfg.moe_capacity_factor)
+    top_val, top_idx = route(x, p["router"], cfg)
+    slot, ts, gs = dispatch(top_idx, top_val, cap, cfg.num_experts, x.dtype)
+    return combine(experts(x, p, cfg, cap, slot, ts), slot, ts, gs, s)
+
+
+def router_aux_loss(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style): E · Σ_e f_e · P_e."""
+    logits = x @ p["router"].to(x.dtype)
+    gates = torch.softmax(logits.to(torch.float32), dim=-1)
+    top1 = torch.argmax(gates, dim=-1)
+    frac = torch.nn.functional.one_hot(top1, cfg.num_experts).to(torch.float32).mean((0, 1))
+    prob = gates.mean((0, 1))
+    return cfg.num_experts * torch.sum(frac * prob)

@@ -744,3 +744,108 @@ def test_cuda_mesh_across_two_cards(cuda):
     mesh = make_mesh((2,), ("shard",), device=cuda)
     assert mesh.placement == "cuda:0×1, cuda:1×1"
     _check_meshed_equal_fused(_meshed_and_fused(cuda, g, mesh, queries), 2)
+
+
+# ---------------------------------------------------------------------------
+# LM families: MoE dispatch, the SSD scan and the rolling window cache
+# ---------------------------------------------------------------------------
+def _moe_cfg(cap_factor):
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+
+    return dataclasses.replace(smoke_config(get_config("mixtral-8x7b")), num_experts=8,
+                               moe_capacity_factor=cap_factor, compute_dtype="float32")
+
+
+@pytest.mark.parametrize("cap_factor", [1.25, 0.5])
+def test_cuda_moe_dispatch_equals_cpu(cuda, cap_factor):
+    """The card's routing equals the CPU's, and its COO dispatch of the same
+    gates (stable sort by expert, ranks, capacity cut) is array-equal to the
+    CPU's; at 0.5 tokens are dropped.  moe_ffn in float32 within 2e-4 / 2e-5
+    of the same routing run in float64 (``tests/test_moe.py``), and within
+    1e-5 of the CPU's."""
+    from repro_torch.models import moe as tmoe
+
+    cfg = _moe_cfg(cap_factor)
+    p = tmoe.MoE(cfg, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32))
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    cap = tmoe._capacity(64, cfg, cap_factor)
+    val, idx = tmoe.route(x.to(cuda), pc["router"], cfg)
+    val_c, idx_c = tmoe.route(x, p["router"], cfg)
+    assert torch.equal(idx.cpu(), idx_c)
+    torch.testing.assert_close(val.cpu(), val_c, rtol=1e-5, atol=1e-6)
+    got = tmoe.dispatch(idx, val, cap, cfg.num_experts, torch.float32)
+    want = tmoe.dispatch(idx.cpu(), val.cpu(), cap, cfg.num_experts, torch.float32)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if cap_factor < 1:
+        assert int((want[0] == cfg.num_experts * cap).sum()) > 0
+    slot, ts, gs = got
+    out = tmoe.moe_ffn(x.to(cuda), pc, cfg)
+    p64 = {k: v.double() for k, v in pc.items()}
+    out64 = tmoe.combine(tmoe.experts(x.to(cuda).double(), p64, cfg, cap, slot, ts),
+                         slot, ts, gs.double(), 64)
+    torch.testing.assert_close(out.double(), out64, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(out.cpu(), tmoe.moe_ffn(x, p, cfg), rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_ssd_chunked_matches_float64_scan(cuda):
+    """``ssd_chunked`` in float32 on the card against the step-by-step
+    recurrence in float64 on the card, at rtol = atol = 2e-4
+    (``tests/test_ssd.py``): 4 chunks of 128, 8 heads of 16, state 32."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    rng = np.random.default_rng(0)
+    b, s, h, p, n = 2, 512, 8, 16, 32
+    x = rng.standard_normal((b, s, h, p))
+    dt = rng.random((b, s, h)) * 0.5
+    A = -rng.random(h)
+    B = rng.standard_normal((b, s, 1, n))
+    C = rng.standard_normal((b, s, 1, n))
+    args = [torch.from_numpy(a).to(cuda) for a in (x, dt, A, B, C)]
+    y, final = ssd_chunked(*(a.float() for a in args), 128)
+    x, dt, A, B, C = args
+    state = torch.zeros((b, h, p, n), dtype=torch.float64, device=cuda)
+    ys = torch.zeros((b, s, h, p), dtype=torch.float64, device=cuda)
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * A[None])
+        state = (state * decay[..., None, None]
+                 + (dt[:, t][..., None] * x[:, t])[..., None]
+                 * B[:, t].repeat_interleave(h, 1)[:, :, None, :])
+        ys[:, t] = torch.einsum("bhpn,bhn->bhp", state, C[:, t].repeat_interleave(h, 1))
+    torch.testing.assert_close(y.double(), ys, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(final.double(), state, rtol=2e-4, atol=2e-4)
+
+
+def test_cuda_windowed_decode_matches_full_cache(cuda):
+    """gemma3's smoke width with windows of 4 on the card: prefill 10, then 8
+    decode steps through rolling buffers (they wrap) equal the full cache's
+    logits within rtol 2e-4 / atol 2e-5 (``tests/test_windowed_cache.py``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(smoke_config(get_config("gemma3-4b")), compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, layer_pattern=tuple(4 if w else w for w in cfg.layer_pattern))
+    api = build_model(cfg, device=cuda)
+    params = api.init_params(torch.Generator(cuda).manual_seed(0))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 18)).astype(np.int32)
+
+    def run(window_cache):
+        cache = api.init_cache(2, 32, window_cache=window_cache)
+        logits, cache = api.prefill(params, {"tokens": toks[:, :10]}, cache)
+        outs = [logits]
+        for t in range(10, 18):
+            logits, cache = api.decode_step(params, toks[:, t:t + 1], t, cache)
+            outs.append(logits)
+        return outs, cache
+
+    full, _ = run(False)
+    win, cache = run(True)
+    assert all(c["k"].shape[1] == 4 and c["k"].device.type == cuda.type for c in cache)
+    for t, (a, b) in enumerate(zip(full, win)):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-5, msg=f"step {t}")

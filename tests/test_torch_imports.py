@@ -44,7 +44,8 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
 def test_importing_the_port_loads_no_jax():
     mods = ["repro_torch", "repro_torch.configs", "repro_torch.convert",
             "repro_torch.core", "repro_torch.core.quantization", "repro_torch.kernels",
-            "repro_torch.models", "repro_torch.models.decode", "repro_torch.serving",
+            "repro_torch.models", "repro_torch.models.decode",
+            "repro_torch.models.ssm", "repro_torch.serving",
             "repro_torch.launch.serve", "repro_torch.launch.ppr_run",
             "repro_torch.ppr_serving", "repro_torch.autotune", "repro_torch.obs",
             "repro_torch.ppr_serving.http", "repro_torch.launch.mesh",

@@ -32,7 +32,6 @@ from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -169,22 +168,15 @@ def test_decode_matches_forward(models):
 
 
 def test_later_slices_raise(models):
+    """What the port still refuses: the encdec (whisper) and vlm
+    (phi-3-vision) families, ``loss_fn`` and cross-attention."""
     _, _, api, params = models
-    for arch in ("mixtral-8x7b", "mamba2-1.3b", "zamba2-1.2b", "whisper-medium",
-                 "phi-3-vision-4.2b", "gemma2-27b", "gemma3-4b"):
+    for arch in ("whisper-medium", "phi-3-vision-4.2b"):
         with pytest.raises(NotImplementedError):
             build_model(smoke_config(get_config(arch)), device="cpu")
     with pytest.raises(NotImplementedError):
-        api.init_cache(1, 8, window_cache=True)
-    with pytest.raises(NotImplementedError):
         api.loss_fn(params, {})
     x = torch.zeros((1, 4, api.cfg.d_model))
-    with pytest.raises(NotImplementedError):
-        tmoe.moe_ffn(x, None, api.cfg)
-    with pytest.raises(NotImplementedError):
-        tattn.attention(x, params.layers[0]["attn"], api.cfg, window=2)
-    with pytest.raises(NotImplementedError):
-        tattn.decode_attention_windowed(x, None, api.cfg, None, None, 0, window=2)
     with pytest.raises(NotImplementedError):
         tattn.cross_attention_cached(x, None, api.cfg, None, None)
 
