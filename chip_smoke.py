@@ -140,7 +140,28 @@ exits non-zero.  It prints, in order:
    decode-step ms p50/p95 over 2 timed passes, the busy share of a
    profiled pass, peak memory, and gemma3-4b's decode step with rolling
    buffers;
-12. a ``{"kernels": [...]}`` JSON line, then the card line, then the
+12. whisper-medium and phi-3-vision-4.2b, and the training path, after
+   phase 11: (a) both models whole (float32 masters drawn on the card from
+   seed 0): in float32 at B = 1, prefill against forward over the same 64
+   tokens with the frames or 576 patches, 4 decode steps against forward
+   (rtol 2e-3 / atol 2e-4), whisper's cross cache against the encoder
+   output's wk / wv; then bf16 serving: whisper 8 requests with frames [8,
+   1500, 1024] through a greedy prefill / decode loop, phi-3-vision 8 text
+   requests through ``ServingEngine`` and one wave with patches through
+   ``prefill``, 64 new tokens each: tokens/s, prefill ms, decode-step p50 /
+   p95, the busy share of a profiled pass, peak memory; (b) gemma-2b at full
+   width cut to 2 layers, float32, B = 2, S = 64 from ``synthetic_batch``:
+   the card's loss and every gradient leaf against the CPU's, and the
+   parameters after one AdamW step, at rtol 2e-4 / atol 2e-5 (where Adam's
+   direction is ill-conditioned, √v̂ < 1e-6, within 2.5·lr); remat on against
+   off; 2 microbatches against 1; the residuals of 12-bit compression ≤
+   2^-12; (c) ``python -m repro_torch.launch.train`` as a subprocess at its
+   defaults (batch 8, seq 256, bf16, remat): gemma-2b 20 steps, again with
+   ``--microbatches 2 --compress-bits 12``, and whisper-medium 10 steps:
+   step ms p50, tokens/s, first and last loss (finite), peak memory and the
+   busy share of a profiled step; (d) ``run_resumable`` at smoke size on the
+   card, a failure at step 4 and a resume, against an uninterrupted run;
+13. a ``{"kernels": [...]}`` JSON line, then the card line, then the
    ``{"ok": true, ...}`` line last.
 
 Everything too long for the end of the output goes to
@@ -3726,6 +3747,487 @@ def lm_families_phase(torch, np, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: whisper-medium and phi-3-vision served, and the training path
+# ---------------------------------------------------------------------------
+# (a): the two models whole; float32 checks at B = 1 over CHECK_PROMPT
+# tokens and CHECK_STEPS decode steps; bf16 serving of ENC_BATCH requests of
+# ENC_PROMPT tokens, ENC_NEW new tokens each
+CHECK_PROMPT, CHECK_STEPS = 64, 4
+ENC_BATCH, ENC_PROMPT, ENC_NEW, ENC_PASSES = 8, 32, 64, 2
+VLM_PROMPT = 512
+TRAIN_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/test_train.py:57
+ILL = 1e-6       # √v̂ below this: Adam's direction m̂/(√v̂+ε) is ill-conditioned
+TRAIN_STEPS, WHISPER_STEPS = 20, 10
+
+
+def _encdec_batch(np, cfg, b, toks, rng):
+    """tokens and the stub frontend's frames or patches (float32, as the
+    reference's smoke tests draw them)."""
+    batch = {"tokens": toks}
+    if cfg.enc_len:
+        batch["frames"] = rng.standard_normal((b, cfg.enc_len, cfg.d_model), np.float32)
+    if cfg.num_patches:
+        batch["patches"] = rng.standard_normal((b, cfg.num_patches, cfg.d_model), np.float32)
+    return batch
+
+
+def _encdec_checks(torch, np, api, params, cfg, rng):
+    """(a) float32, B = 1: prefill against forward over the same tokens with
+    the frames or patches, CHECK_STEPS decode steps against forward, and
+    whisper's cross cache against the encoder output's wk / wv."""
+    from repro_torch.models.transformer import run_encoder
+
+    s, n, p = CHECK_PROMPT, CHECK_STEPS, cfg.num_patches
+    toks = rng.integers(0, cfg.vocab_size, (1, s + n)).astype(np.int32)
+    batch = _encdec_batch(np, cfg, 1, toks, rng)
+    full = api.forward(params, batch)
+    same = api.forward(params, dict(batch, tokens=toks[:, :s]))[:, -1]
+    cache = api.init_cache(1, p + s + n)
+    logits, cache = api.prefill(params, dict(batch, tokens=toks[:, :s]), cache)
+    out = dict(prefill_vs_forward_same_length=float((logits - same).abs().max()))
+    if not torch.allclose(logits, same, **LOGIT_TOL):
+        _fail(f"{cfg.name} f32: prefill differs from forward over the same {s} tokens by "
+              f"{out['prefill_vs_forward_same_length']:.3e}")
+    err = 0.0
+    for t in range(n + 1):
+        want = full[:, p + s - 1 + t]
+        e = float((logits - want).abs().max())
+        err = max(err, e)
+        if not torch.allclose(logits, want, **LOGIT_TOL):
+            _fail(f"{cfg.name} f32: step {t} differs from forward by {e:.3e} (rtol "
+                  f"{LOGIT_TOL['rtol']}, atol {LOGIT_TOL['atol']})")
+        if t < n:
+            logits, cache = api.decode_step(params, toks[:, s + t:s + t + 1], p + s + t, cache)
+    out["decode_vs_forward"] = err
+    if cfg.enc_layers:
+        enc = run_encoder(params, torch.as_tensor(batch["frames"], device=full.device), cfg)
+        shape = (1, cfg.enc_len, cfg.num_kv_heads, cfg.head_dim)
+        cross = 0.0
+        for block, c in zip(params.layers, cache):
+            for name, w in (("ck", "wk"), ("cv", "wv")):
+                want = (enc @ block["cross"][w]).reshape(shape)
+                cross = max(cross, float((c[name] - want).abs().max()))
+                if not torch.allclose(c[name], want, rtol=1e-6, atol=1e-6):
+                    _fail(f"{cfg.name}: the cross cache {name} is not the encoder output's "
+                          f"{w} projection")
+        out["cross_cache_max_abs_err"] = cross
+    return out
+
+
+def _whisper_serve(torch, np, api16, params, cfg, rng):
+    """(a) whisper bf16: ENC_BATCH requests, frames [B, 1500, 1024], a greedy
+    prefill / decode_step loop of ENC_NEW tokens; a warm-up, ENC_PASSES timed
+    passes and one profiled."""
+    b, s, n = ENC_BATCH, ENC_PROMPT, ENC_NEW
+    batch = _encdec_batch(np, cfg, b, rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+                          rng)
+    batch["frames"] = torch.as_tensor(batch["frames"], device=params.embed.device)
+    prefill_ms, decode_ms = [], []
+    prefill = _timed(torch, api16.prefill, prefill_ms)
+    decode = _timed(torch, api16.decode_step, decode_ms)
+
+    def serve(new):
+        logits, cache = prefill(params, batch, api16.init_cache(b, s + new))
+        out = []
+        for t in range(new):
+            cur = logits.argmax(-1)[:, None]
+            out.append(cur)
+            logits, cache = decode(params, cur, s + t, cache)
+        return torch.cat(out, 1)
+
+    serve(4)
+    prefill_ms.clear()
+    decode_ms.clear()
+    times = []
+    for _ in range(ENC_PASSES):
+        t = time.perf_counter()
+        toks = serve(n)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if toks.shape != (b, n) or not bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()):
+            _fail("whisper bf16 serving did not return in-vocabulary tokens")
+    return _serve_stats(torch, np, times, prefill_ms, decode_ms, lambda: serve(n),
+                        dict(batch=b, prompt=s, frames=cfg.enc_len, new_tokens=n))
+
+
+def _serve_stats(torch, np, times, prefill_ms, decode_ms, run, shape):
+    b, n = shape["batch"], shape["new_tokens"]
+    per = [b * n / t for t in times]
+    out = dict(shape, passes=len(times), tokens_per_s=b * n * len(times) / sum(times),
+               tokens_per_s_pass_range=[min(per), max(per)], pass_s=times,
+               prefill_ms=prefill_ms[:], decode_step_ms_p50=float(np.percentile(decode_ms, 50)),
+               decode_step_ms_p95=float(np.percentile(decode_ms, 95)),
+               decode_steps=len(decode_ms))
+    out["profile"] = _busy_share(torch, run)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _vlm_serve(torch, np, api16, params, cfg, rng):
+    """(a) phi-3-vision bf16: ``ServingEngine`` with ENC_BATCH text requests of
+    VLM_PROMPT tokens (the engine passes no patches), then one wave through
+    ``prefill`` with 576 patches a request and ENC_NEW decode steps."""
+    import dataclasses
+
+    from repro_torch.serving import Request, ServingEngine
+
+    b, n = ENC_BATCH, ENC_NEW
+    prefill_ms, decode_ms = [], []
+    api_t = api16._replace(prefill=_timed(torch, api16.prefill, prefill_ms),
+                           decode_step=_timed(torch, api16.decode_step, decode_ms))
+    engine = ServingEngine(api_t, params, batch_size=b, max_len=VLM_PROMPT + n)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, VLM_PROMPT).astype(np.int32),
+                    max_new_tokens=n) for i in range(b)]
+    engine.serve([dataclasses.replace(r, max_new_tokens=4) for r in reqs])
+    prefill_ms.clear()
+    decode_ms.clear()
+    times = []
+    for _ in range(ENC_PASSES):
+        t = time.perf_counter()
+        res = engine.serve(reqs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if sum(len(r) for r in res.values()) != b * n:
+            _fail("phi-3-vision bf16 serving did not return every token")
+    out = _serve_stats(torch, np, times, prefill_ms, decode_ms, lambda: engine.serve(reqs),
+                       dict(batch=b, prompt=VLM_PROMPT, new_tokens=n))
+    # one wave with patches: positions 0..575 are the image, the prompt follows
+    s, p = ENC_PROMPT, cfg.num_patches
+    batch = _encdec_batch(np, cfg, b, rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+                          rng)
+    prefill_ms.clear()
+    decode_ms.clear()
+    logits, cache = api_t.prefill(params, batch, api16.init_cache(b, p + s + n))
+    for t in range(n):
+        logits, cache = api_t.decode_step(params, logits.argmax(-1)[:, None], p + s + t, cache)
+    if not bool(torch.isfinite(logits).all()):
+        _fail("phi-3-vision: the wave with patches returned non-finite logits")
+    out["with_patches"] = dict(batch=b, patches=p, prompt=s, new_tokens=n,
+                               prefill_ms=prefill_ms[0],
+                               decode_step_ms_p50=float(np.percentile(decode_ms, 50)))
+    return out
+
+
+def encdec_serving(torch, np, dev):
+    """Phase 12(a): whisper-medium and phi-3-vision-4.2b whole."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    out = {}
+    for arch, serve in (("whisper-medium", _whisper_serve), ("phi-3-vision-4.2b", _vlm_serve)):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        api32 = build_model(cfg32, device=dev, remat=False)
+        params = api32.init_params(torch.Generator(dev).manual_seed(0))
+        n_params = sum(p.numel() for p in params.parameters())
+        rng = np.random.default_rng(20)
+        r = dict(parameters=n_params, f32_gb=n_params * 4 / 1e9,
+                 checks=_encdec_checks(torch, np, api32, params, cfg32, rng))
+        c = r["checks"]
+        print(f"[encdec] {arch}: {n_params} parameters ({r['f32_gb']:.2f} GB float32); f32, "
+              f"B=1, prompt {CHECK_PROMPT}: prefill vs forward over the same tokens "
+              f"{c['prefill_vs_forward_same_length']:.3e}, {CHECK_STEPS} decode steps vs forward "
+              f"max abs err {c['decode_vs_forward']:.3e}"
+              + (f"; cross cache vs the encoder's wk/wv {c['cross_cache_max_abs_err']:.3e}"
+                 if "cross_cache_max_abs_err" in c else ""))
+        api16 = build_model(cfg, device=dev, remat=False)
+        sv = serve(torch, np, api16, params, cfg, rng)
+        r["serving"] = sv
+        prof = sv["profile"]
+        print(f"[encdec] {arch} bf16: {sv['batch']} requests, prompt {sv['prompt']}"
+              + (f", frames [{sv['batch']}, {sv['frames']}, {cfg.d_model}]" if "frames" in sv
+                 else ", text-only through ServingEngine")
+              + f", {sv['new_tokens']} new tokens, {sv['passes']} timed passes: "
+              f"{sv['tokens_per_s']:.1f} tokens/s (passes {sv['tokens_per_s_pass_range'][0]:.1f}"
+              f"-{sv['tokens_per_s_pass_range'][1]:.1f}); prefill "
+              f"{statistics.median(sv['prefill_ms']):.2f} ms; decode step p50/p95 "
+              f"{sv['decode_step_ms_p50']:.2f}/{sv['decode_step_ms_p95']:.2f} ms; device busy "
+              f"{100 * prof['device_busy_share']:.1f}% of a profiled pass; peak memory "
+              f"{sv['peak_mem_gb']:.2f} GB")
+        if "with_patches" in sv:
+            w = sv["with_patches"]
+            print(f"[encdec] {arch} bf16 wave with patches: B={w['batch']}, {w['patches']} "
+                  f"patches + {w['prompt']} tokens: prefill {w['prefill_ms']:.2f} ms, decode "
+                  f"step p50 {w['decode_step_ms_p50']:.2f} ms")
+        r["wall_s"] = time.perf_counter() - t0
+        out[arch] = r
+        del params, api32, api16
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _hold_params(torch, got, want, nu, lr, step, opt):
+    """Parameters after a step against a reference's: (b)'s tolerance, except
+    where √v̂ < ILL (Adam's direction ill-conditioned: there |Δp| ≤ 2.5·lr
+    a step).  Returns (max abs err outside those, count of those)."""
+    err, ill_n = 0.0, 0
+    b2c = 1 - opt.b2 ** step
+    for n, w in want.items():
+        g = got[n].detach().to(w.device)
+        d = (g - w).abs()
+        off = d > TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * w.abs()
+        ill = torch.sqrt(nu[n].to(w.device) / b2c) < ILL
+        if bool((off & ~ill).any()):
+            _fail(f"parameter {n}: {float(d[off & ~ill].max()):.3e} from the reference after "
+                  f"{step} step(s) where Adam is well-conditioned")
+        if bool((d[off] > 2.5 * lr * step).any()):
+            _fail(f"parameter {n}: an ill-conditioned element moved beyond 2.5·lr a step")
+        ill_n += int(off.sum())
+        err = max(err, float(d[~off].max()) if bool((~off).any()) else 0.0)
+    return err, ill_n
+
+
+def train_numerics(torch, np, dev):
+    """Phase 12(b): gemma-2b at full width cut to 2 global layers, float32,
+    B = 2, S = 64 from ``synthetic_batch``: the card's loss and every
+    gradient leaf against the CPU's, the parameters after one AdamW step,
+    remat on = off, 2 microbatches = 1, and the residuals of
+    ``grad_compress_bits=12``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=2, layer_pattern=(0, 0),
+                              compute_dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    lr = float(opt.lr)
+    cpu = torch.device("cpu")
+    init = build_model(cfg, device=dev).init_params(torch.Generator(dev).manual_seed(0))
+    init = {n: t.cpu() for n, t in init.state_dict().items()}
+    dcfg = DataConfig(seq_len=64, global_batch=2)
+    out = dict(parameters=sum(p.numel() for p in init.values()))
+
+    def fresh(device):
+        """The parameters drawn on the card from seed 0, copied to ``device``."""
+        params = Transformer(cfg, device="meta")
+        params.load_state_dict({n: t.to(device, copy=True) for n, t in init.items()},
+                               assign=True)
+        return params.requires_grad_(True)
+
+    def loss_and_grads(device, remat):
+        api = build_model(cfg, device=device, remat=remat)
+        params = fresh(device)
+        loss = api.loss_fn(params, synthetic_batch(cfg, dcfg, 0, device))
+        loss.backward()
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        return params, float(loss.detach()), grads
+
+    t0 = time.perf_counter()
+    card_params, card_loss, card_grads = loss_and_grads(dev, True)
+    cpu_params, cpu_loss, cpu_grads = loss_and_grads(cpu, True)
+    out["loss"] = dict(card=card_loss, cpu=cpu_loss)
+    if abs(card_loss - cpu_loss) > TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(cpu_loss):
+        _fail(f"gemma-2b x2 loss on the card {card_loss} vs the CPU {cpu_loss}")
+    gerr = 0.0
+    for n, w in cpu_grads.items():
+        g = card_grads[n].cpu()
+        gerr = max(gerr, float((g - w).abs().max()))
+        if not torch.allclose(g, w, **TRAIN_TOL):
+            _fail(f"gemma-2b x2: the gradient of {n} on the card is "
+                  f"{float((g - w).abs().max()):.3e} from the CPU's")
+    out["grad_max_abs_err"] = gerr
+    # one AdamW step on each, from the same gradients' own device copies
+    card_state, cpu_state = init_opt_state(card_params), init_opt_state(cpu_params)
+    adamw_update(opt, card_grads, card_state, card_params)
+    adamw_update(opt, cpu_grads, cpu_state, cpu_params)
+    perr, ill = _hold_params(torch, dict(card_params.named_parameters()),
+                             {n: p.detach() for n, p in cpu_params.named_parameters()},
+                             cpu_state.nu, lr, 1, opt)
+    out["adamw_step"] = dict(max_abs_err=perr, ill_conditioned_elements=ill)
+    del cpu_params, cpu_grads, cpu_state, card_state
+    # remat on against off, on the card
+    _, loss_off, grads_off = loss_and_grads(dev, False)
+    rerr = max(float((card_grads[n] - g).abs().max()) for n, g in grads_off.items())
+    if not all(torch.allclose(card_grads[n], g, **TRAIN_TOL) for n, g in grads_off.items()):
+        _fail(f"gemma-2b x2: remat=True gradients {rerr:.3e} from remat=False")
+    out["remat_vs_not"] = dict(loss=[card_loss, loss_off], grad_max_abs_err=rerr)
+    del card_params, card_grads, grads_off
+    # 2 microbatches against 1, and compression at 12 bits, through make_train_step
+    api = build_model(cfg, device=dev, remat=True)
+    batch = synthetic_batch(cfg, dcfg, 0, dev)
+    states = {}
+    for m, bits in ((1, 0), (2, 0), (1, 12)):
+        step = make_train_step(api.loss_fn, opt, microbatches=m, grad_compress_bits=bits)
+        states[m, bits] = step(init_train_state(fresh(dev), compress=bits > 0), batch)
+    (s1, m1), (s2, m2) = states[1, 0], states[2, 0]
+    merr, mill = _hold_params(torch, dict(s2.params.named_parameters()),
+                              {n: p.detach() for n, p in s1.params.named_parameters()},
+                              s1.opt.nu, lr, 1, opt)
+    out["microbatches_2_vs_1"] = dict(loss=[float(m1["loss"]), float(m2["loss"])],
+                                      max_abs_err=merr, ill_conditioned_elements=mill)
+    sc, mc = states[1, 12]
+    rmax = max(float(r.abs().max()) for r in sc.residual.values())
+    if not rmax <= 2.0 ** -12 or not np.isfinite(float(mc["loss"])):
+        _fail(f"grad_compress_bits=12: a residual of {rmax} exceeds 2^-12")
+    out["compress_12"] = dict(residual_max=rmax, loss=float(mc["loss"]))
+    out["wall_s"] = time.perf_counter() - t0
+    del states, sc, s1, s2
+    print(f"[train] (b) gemma-2b at full width cut to 2 layers ({out['parameters']} "
+          f"parameters), f32, B=2, S=64: loss card {card_loss:.6f} vs CPU {cpu_loss:.6f}; "
+          f"every gradient leaf within rtol 2e-4 / atol 2e-5 (max abs err {gerr:.3e}); after "
+          f"one AdamW step the parameters within it (max abs err {perr:.3e}; {ill} "
+          f"ill-conditioned elements held to 2.5·lr); remat on vs off {rerr:.3e}; 2 "
+          f"microbatches vs 1 {merr:.3e} ({mill} ill-conditioned); compress 12 bits: max "
+          f"residual {rmax:.3e} <= 2^-12 ({out['wall_s']:.1f} s)")
+    return out
+
+
+def _train_driver(np, args, timeout=300):
+    """``python -m repro_torch.launch.train`` as a subprocess, its ``done:``,
+    ``timing:`` and ``profile:`` lines parsed."""
+    import os
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--ckpt-dir", ckpt,
+               "--log-every", "5", "--profile"] + args
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                             env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=str(ROOT))
+        wall = time.perf_counter() - t0
+    if run.returncode:
+        _fail(f"launch.train {' '.join(args)} exited {run.returncode}: {run.stderr[-2000:]}")
+    done = re.search(r"done: ran (\d+) steps, first loss ([-\d.naif]+) last ([-\d.naif]+)",
+                     run.stdout)
+    timing = re.search(r"step ms p50 ([\d.]+) \(min ([\d.]+), max ([\d.]+)\), ([\d,.]+) "
+                       r"tokens/s at the p50, peak memory ([\d.]+) GB, first step done "
+                       r"([\d.]+) s after start", run.stdout)
+    prof = re.search(r"profile: wall ([\d.]+) ms, device busy ([\d.]+) ms \(([\d.]+)%\)",
+                     run.stdout)
+    if not (done and timing and prof):
+        _fail(f"launch.train {' '.join(args)}: missing done/timing/profile lines:\n"
+              f"{run.stdout[-2000:]}")
+    first, last = float(done.group(2)), float(done.group(3))
+    if not (np.isfinite(first) and np.isfinite(last)):
+        _fail(f"launch.train {' '.join(args)}: non-finite loss {first} / {last}")
+    return dict(args=args, steps=int(done.group(1)), first_loss=first, last_loss=last,
+                step_ms_p50=float(timing.group(1)), step_ms_min=float(timing.group(2)),
+                step_ms_max=float(timing.group(3)),
+                tokens_per_s=float(timing.group(4).replace(",", "")),
+                peak_mem_gb=float(timing.group(5)), first_step_done_s=float(timing.group(6)),
+                profile_wall_ms=float(prof.group(1)),
+                profile_busy_ms=float(prof.group(2)), busy_share=float(prof.group(3)) / 100,
+                wall_s=wall, stdout=run.stdout)
+
+
+def train_full_width(np, card):
+    """Phase 12(c): ``launch.train`` at its defaults (batch 8, seq 256, bf16,
+    remat): gemma-2b 20 steps, again with 2 microbatches and 12-bit
+    compression, and whisper-medium 10 steps; no checkpoint is written."""
+    runs = {"gemma-2b": ["--arch", "gemma-2b", "--steps", str(TRAIN_STEPS),
+                         "--save-every", str(TRAIN_STEPS + 1)],
+            "gemma-2b m2 c12": ["--arch", "gemma-2b", "--steps", str(TRAIN_STEPS),
+                                "--save-every", str(TRAIN_STEPS + 1), "--microbatches", "2",
+                                "--compress-bits", "12"],
+            "whisper-medium": ["--arch", "whisper-medium", "--steps", str(WHISPER_STEPS),
+                               "--save-every", str(WHISPER_STEPS + 1)]}
+    out = {}
+    for name, args in runs.items():
+        r = _train_driver(np, args)
+        out[name] = r
+        print(f"[train] (c) {name}, batch 8, seq 256, bf16, remat: {r['steps']} steps, step "
+              f"ms p50 {r['step_ms_p50']:.2f} (min {r['step_ms_min']:.2f}, max "
+              f"{r['step_ms_max']:.2f}), {r['tokens_per_s']:.1f} tokens/s; loss "
+              f"{r['first_loss']:.4f} -> {r['last_loss']:.4f}; peak memory "
+              f"{r['peak_mem_gb']:.2f} GB; device busy {100 * r['busy_share']:.1f}% of a "
+              f"profiled step ({r['profile_busy_ms']:.1f} of {r['profile_wall_ms']:.1f} ms); "
+              f"first step done {r['first_step_done_s']:.1f} s after launch.train started, "
+              f"subprocess {r['wall_s']:.1f} s ({card})")
+    return out
+
+
+def train_resume(torch, np, dev):
+    """Phase 12(d): ``run_resumable`` at smoke size on the card: a failure at
+    step 4 after the checkpoint at step 3, then a resume, against an
+    uninterrupted run of 6 steps, parameters within (b)'s tolerance (the
+    embedding's backward sums by atomics: no raw equality) except
+    ill-conditioned elements."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.training import (
+        AdamWConfig,
+        FaultConfig,
+        init_train_state,
+        make_train_step,
+        run_resumable,
+    )
+
+    cfg = dataclasses.replace(smoke_config(get_config("gemma-2b")), compute_dtype="float32",
+                              num_layers=2, layer_pattern=(0, 0))
+    api = build_model(cfg, device=dev)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    step = make_train_step(api.loss_fn, opt)
+
+    def init():
+        return init_train_state(api.init_params(torch.Generator(dev).manual_seed(0)))
+
+    def batch_fn(s):
+        return synthetic_batch(cfg, DataConfig(16, 4), s, dev)
+
+    ref = init()
+    for s in range(6):
+        ref, _ = step(ref, batch_fn(s))
+    with tempfile.TemporaryDirectory() as d:
+        fault = FaultConfig(ckpt_dir=d, save_every=3, max_steps=6)
+        try:
+            run_resumable(fault, init, step, batch_fn, fail_at_step=4)
+            _fail("run_resumable did not raise at fail_at_step")
+        except RuntimeError as e:
+            if "simulated node failure" not in str(e):
+                raise
+        state, steps_run, _ = run_resumable(fault, init, step, batch_fn)
+    if steps_run != 3 or int(state.opt.step) != 6:
+        _fail(f"the resume ran {steps_run} steps to step {int(state.opt.step)}, not 3 to 6")
+    err, ill = _hold_params(torch, dict(state.params.named_parameters()),
+                            {n: p.detach() for n, p in ref.params.named_parameters()},
+                            ref.opt.nu, opt.lr, 6, opt)
+    print(f"[train] (d) resume at smoke size on the card: failure at step 4, resumed from "
+          f"the step-3 checkpoint, 3 steps run; parameters vs an uninterrupted run max abs "
+          f"err {err:.3e} ({ill} ill-conditioned elements)")
+    return dict(max_abs_err=err, ill_conditioned_elements=ill, steps_run=steps_run)
+
+
+def encdec_train_phase(torch, np, dev, card):
+    """Phase 12: (a) whisper-medium and phi-3-vision served, (b) the training
+    numerics at gemma-2b's width, (c) ``launch.train`` at full width, (d)
+    resume on the card."""
+    import gc
+
+    t0 = time.perf_counter()
+    out = dict(serving=encdec_serving(torch, np, dev))
+    t1 = time.perf_counter()
+    out["numerics"] = train_numerics(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    out["full_width"] = train_full_width(np, card)
+    t3 = time.perf_counter()
+    out["resume"] = train_resume(torch, np, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[train] phase 12 took {out['wall_s']:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
+          f"(c) {t3 - t2:.1f}, (d) {time.perf_counter() - t3:.1f})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     try:
         import torch
@@ -3795,6 +4297,7 @@ def main() -> int:
     lm_rows, tensor_cores = lm_kernel_phase(torch, dev)
     lm = lm_serving_phase(torch, np, dev)
     families = lm_families_phase(torch, np, dev)
+    encdec_train = encdec_train_phase(torch, np, dev, card)
 
     print("[times] kernel graph domain: ms plain_ms bound_ms library_ms "
           "function_bound_ms bound_share | device_ms device_bound_share "
@@ -3904,6 +4407,10 @@ def main() -> int:
         sharded={k: v for k, v in sharded.items() if k not in ("rows", "driver_stdout")},
         lm_kernel_rows=lm_rows, tensor_cores=tensor_cores, lm_serving=lm,
         lm_families=families,
+        encdec_train=dict(encdec_train, full_width={
+            k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
+            for k, v in encdec_train["full_width"].items()}),
+        train_stdout={k: v["stdout"] for k, v in encdec_train["full_width"].items()},
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

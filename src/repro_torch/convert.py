@@ -16,7 +16,8 @@ from repro_torch.core.coo import COOGraph
 from repro_torch.models.common import find_segments
 from repro_torch.models.transformer import Transformer
 
-__all__ = ["graph_from_arrays", "raw_to_torch", "raw_to_numpy", "lm_params_from_jax"]
+__all__ = ["graph_from_arrays", "raw_to_torch", "raw_to_numpy", "lm_params_from_jax",
+           "lm_name_map", "leaf_at"]
 
 
 def graph_from_arrays(x, y, val, dangling, num_vertices: int) -> COOGraph:
@@ -40,33 +41,62 @@ def raw_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().view(np.uint32)
 
 
-def _leaves(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
+def _leaves(tree: Dict[str, Any], prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
     for key, val in tree.items():
         if isinstance(val, dict):
-            yield from _leaves(val, f"{prefix}{key}.")
+            yield from _leaves(val, prefix + (key,))
         else:
-            yield prefix + key, val
+            yield prefix + (key,), val
 
 
-def lm_params_from_jax(params_np: Dict[str, Any], cfg: ModelConfig) -> Transformer:
-    """The port's ``Transformer``, on the CPU, from the reference's parameter
-    pytree (leaves as numpy arrays; the decoder-only families).
+def leaf_at(tree, path: Tuple) -> Any:
+    """The leaf of a nested dict/list ``tree`` at ``path`` (keys and indices)."""
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def lm_name_map(params_np: Dict[str, Any], cfg: ModelConfig
+                ) -> Dict[str, Tuple[Tuple, Tuple[int, ...]]]:
+    """The port's parameter name → (the reference's leaf path, index into
+    that leaf), for every parameter of every family.
 
     The reference stacks each pattern segment's layers as
     ``params["segments"][s][key][rep, j]`` (expert tensors ``[E, D, F]``
     behind the two stack axes; mamba layers as ``segments[0]`` of group
     ``(MAMBA,)``); layer ``i`` of the port is the ``i``-th (segment, rep, j)
-    in order.  Top-level entries (``embed``, ``final_norm``, zamba2's
-    ``shared_attn``) keep their names.  Raises on any missing or extra key."""
-    state = dict(_leaves({k: v for k, v in params_np.items() if k != "segments"}))
+    in order.  whisper's ``encoder`` is stacked ``[L, …]``: the port's
+    ``encoder.i``.  Every other entry (``embed``, ``final_norm``,
+    ``unembed``, ``pos_embed``, zamba2's ``shared_attn``, ``enc_pos``,
+    ``enc_final_norm``, ``patch_proj``) keeps its name.  The same map reads
+    a gradient or optimizer-moment tree of the reference leaf by leaf."""
+    names: Dict[str, Tuple[Tuple, Tuple[int, ...]]] = {}
+    for path, _ in _leaves({k: v for k, v in params_np.items()
+                            if k not in ("segments", "encoder")}):
+        names[".".join(path)] = (path, ())
+    for path, leaf in _leaves(params_np.get("encoder", {})):
+        for i in range(np.shape(leaf)[0]):
+            names[f"encoder.{i}." + ".".join(path)] = (("encoder",) + path, (i,))
     i = 0
-    for seg, (group, reps) in zip(params_np["segments"], find_segments(cfg.layer_pattern)):
+    for s, (seg, (group, reps)) in enumerate(zip(params_np["segments"],
+                                                 find_segments(cfg.layer_pattern))):
         for rep in range(reps):
             for j in range(len(group)):
-                for name, leaf in _leaves(seg):
-                    state[f"layers.{i}.{name}"] = np.asarray(leaf)[rep, j]
+                for path, _ in _leaves(seg):
+                    names[f"layers.{i}." + ".".join(path)] = (("segments", s) + path, (rep, j))
                 i += 1
+    return names
+
+
+def lm_params_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
+                       trainable: bool = False) -> Transformer:
+    """The port's ``Transformer``, on the CPU, from the reference's parameter
+    pytree (leaves as numpy arrays), laid out by ``lm_name_map``.  Raises on
+    any missing or extra key.  The parameters are frozen unless
+    ``trainable``."""
+    state = {name: np.asarray(leaf_at(params_np, path))[index]
+             for name, (path, index) in lm_name_map(params_np, cfg).items()}
     model = Transformer(cfg, device="meta")
     model.load_state_dict({k: torch.as_tensor(np.array(v, np.float32))
                            for k, v in state.items()}, strict=True, assign=True)
-    return model.requires_grad_(False)
+    return model.requires_grad_(trainable)

@@ -6,17 +6,20 @@
   ``scale`` are bit-identical to the reference: f32 divide, ``trunc``, clip,
   int8.
 - ``truncate_to_grid``: the exact paper quantizer (toward zero, 2^-f grid).
-
-``ErrorFeedbackQuantizer`` (gradient compression) comes with the training
-slice.
+- ``ErrorFeedbackQuantizer``: gradient compression with error feedback,
+  q = trunc(g + residual), residual' = (g + residual) − q.  The residual
+  carries the truncation error to the next step, so the compressed SGD
+  trajectory stays unbiased in the long run.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-__all__ = ["QuantizedTensor", "quantize_weights", "dequantize", "truncate_to_grid"]
+__all__ = ["QuantizedTensor", "quantize_weights", "dequantize", "truncate_to_grid",
+           "ErrorFeedbackQuantizer"]
 
 
 def truncate_to_grid(x: torch.Tensor, frac_bits: int) -> torch.Tensor:
@@ -45,3 +48,26 @@ def quantize_weights(w: torch.Tensor, bits: int = 8) -> QuantizedTensor:
 
 def dequantize(qt: QuantizedTensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return qt.q.to(dtype) * qt.scale[None, :].to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ErrorFeedbackQuantizer:
+    """Gradient compressor: truncate to ``frac_bits`` fractional bits with
+    residual feedback, over a dict of gradients keyed by parameter name.
+    With f bits the wire format is (f + int_bits + sign) bits against 32:
+    f = 12 moves ~2.4× fewer bytes in a data-parallel all-reduce."""
+
+    frac_bits: int = 12
+
+    def init_state(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: torch.zeros_like(g) for k, g in grads.items()}
+
+    def compress(self, grads: Dict[str, torch.Tensor], residuals: Dict[str, torch.Tensor]
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """(q, new residuals), both new dicts; the inputs are left as they are."""
+        q, res = {}, {}
+        for k, g in grads.items():
+            corrected = g + residuals[k]
+            q[k] = truncate_to_grid(corrected, self.frac_bits)
+            res[k] = corrected - q[k]
+        return q, res

@@ -6,10 +6,15 @@
         --batch 32 --prompt-len 1024 --new-tokens 128 --max-len 1152 --profile
 
 ``--arch`` takes every decoder-only architecture of ``configs/archs.py``
-(dense with global or local-window layers, moe, ssm, hybrid).  Weights are
-drawn from ``torch.Generator(device).manual_seed(0)`` as float32 masters on
-the device (``cfg.param_count()`` × 4 bytes: gemma-2b 10.0 GB; mixtral-8x7b
-187 GB, more than one card holds).
+(dense with global or local-window layers, moe, ssm, hybrid) and
+phi-3-vision-4.2b, served text-only (its patches are optional, as in the
+reference).  whisper-medium raises ``KeyError: 'frames'``, as the reference's
+does: the engine passes prefill only the tokens, and the encoder needs
+frames (serve whisper through ``prefill``/``decode_step`` with
+``batch["frames"]``).  Weights are drawn from
+``torch.Generator(device).manual_seed(0)`` as float32 masters on the device
+(``cfg.param_count()`` × 4 bytes: gemma-2b 10.0 GB; mixtral-8x7b 187 GB,
+more than one card holds).
 ``--profile`` serves the requests once more under ``torch.profiler`` and
 prints the device's busy share of that pass and its device time by operator
 and by kernel.

@@ -4,7 +4,8 @@ query-chunked prefill and cached decode, full or rolling-window caches
 
 Local layers slice K/V to ``window + qc`` positions per query chunk, as the
 reference does (there a ``dynamic_slice``, here plain slicing: the port is
-eager).  Cross-attention raises ``NotImplementedError`` naming its slice.
+eager).  ``cross_attention_cached`` is whisper's decoder cross-attention
+against the encoder's K/V (no mask, no rope, no softcap).
 ``_attend`` keeps the reference's einsum form (scores in the input dtype,
 softmax in float32); the model path does not call the flash kernel, as the
 reference's does not call its Pallas one.
@@ -222,7 +223,16 @@ def fill_windowed_cache(cache_k, cache_v, k, v):
     return cache_k, cache_v
 
 
-def cross_attention_cached(x, p, cfg, cross_k, cross_v):
-    raise NotImplementedError(
-        "cross-attention against encoder K/V is not ported yet: it comes with "
-        "the encdec (whisper) slice")
+def cross_attention_cached(x, p, cfg: ModelConfig, cross_k, cross_v) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (whisper).
+    x [B,S,D]; cross_k/v [B,enc,KV,hd] in any dtype (cast to x's).  Scores
+    in x's dtype, the softmax in float32, as the reference."""
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    qg = q.reshape(b, s, kvh, h // kvh, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, cross_k.to(x.dtype)).to(torch.float32)
+    scores = scores / math.sqrt(hd)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, cross_v.to(x.dtype)).reshape(b, s, h * hd)
+    return out @ p["wo"].to(x.dtype)

@@ -5,7 +5,9 @@ The paper's κ-batching generalised to LM serving: up to ``batch_size``
 requests share one wave; their prompts are left-padded with token 0 (no pad
 mask, as in the reference), prefill fills the cache, and decode advances all
 slots in lock-step, one ``decode_step`` per token, argmax on the first
-maximum.
+maximum.  Prefill gets ``{"tokens"}`` only, as in the reference: a vlm is
+served text-only, and whisper's prefill raises ``KeyError: 'frames'``
+(the reference's ``engine.py:59`` against ``decode.py:107``; copied).
 """
 from __future__ import annotations
 

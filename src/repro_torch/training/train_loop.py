@@ -1,0 +1,92 @@
+"""train_step factory: microbatched gradient accumulation, optional
+fixed-point gradient compression with error feedback, then AdamW
+(counterpart of ``repro.training.train_loop``).
+
+The step is eager: each microbatch's backward accumulates into the
+parameters' ``.grad`` (float32, as the masters), the sum is divided by the
+microbatch count, compressed when asked, and AdamW updates the parameters
+and moments in place.  Activation memory goes as 1/m.  Compression is
+``core.quantization.ErrorFeedbackQuantizer``'s, done in place on the
+residual so that a step holds no second copy of it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.quantization import truncate_to_grid
+from repro_torch.training.optimizer import (
+    AdamState,
+    AdamWConfig,
+    adamw_update,
+    init_opt_state,
+    named_params,
+)
+
+__all__ = ["TrainState", "init_train_state", "make_train_step"]
+
+
+class TrainState(NamedTuple):
+    params: Any                                   # Transformer (or a dict of tensors)
+    opt: AdamState
+    residual: Optional[Dict[str, torch.Tensor]]   # error-feedback residual, or None
+
+
+def init_train_state(params, compress: bool = False) -> TrainState:
+    """Turns the parameters' gradients on and zeroes μ, ν (and the
+    compression residual when ``compress``)."""
+    named = named_params(params)
+    for p in named.values():
+        p.requires_grad_(True)
+    res = {k: torch.zeros_like(p) for k, p in named.items()} if compress else None
+    return TrainState(params=params, opt=init_opt_state(params), residual=res)
+
+
+def _split(batch, microbatches: int):
+    """The batch's leaves split along dim 0 into ``microbatches`` equal parts
+    (the reference's reshape to [m, B/m, …]: B must divide)."""
+    b = next(iter(batch.values())).shape[0]
+    if b % microbatches:
+        raise ValueError(f"a batch of {b} does not split into {microbatches} "
+                         f"equal microbatches")
+    n = b // microbatches
+    return [{k: x[i * n:(i + 1) * n] for k, x in batch.items()}
+            for i in range(microbatches)]
+
+
+def make_train_step(loss_fn, opt_cfg: AdamWConfig, microbatches: int = 1,
+                    grad_compress_bits: int = 0):
+    """loss_fn(params, batch) → scalar.  Returns train_step(state, batch) →
+    (state, {loss, grad_norm, lr}); the state's tensors are updated in place."""
+
+    def train_step(state: TrainState, batch):
+        named = named_params(state.params)
+        for p in named.values():
+            p.grad = None
+        loss = None
+        for mb in _split(batch, microbatches) if microbatches > 1 else [batch]:
+            mb_loss = loss_fn(state.params, mb)
+            mb_loss.backward()
+            loss = mb_loss.detach() if loss is None else loss + mb_loss.detach()
+        grads = {}
+        for k, p in named.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+            grads[k] = g / microbatches if microbatches > 1 else g
+        if microbatches > 1:
+            loss = loss / microbatches
+
+        residual = state.residual
+        if grad_compress_bits and residual is not None:
+            # the paper's truncation quantizer with error feedback
+            for k, g in grads.items():
+                residual[k].add_(g)                  # g + r
+                grads[k] = truncate_to_grid(residual[k], grad_compress_bits)
+                residual[k].sub_(grads[k])           # (g + r) − q
+
+        params, opt, metrics = adamw_update(opt_cfg, grads, state.opt, state.params)
+        del grads
+        return TrainState(params, opt, residual), dict(metrics, loss=loss)
+
+    return train_step

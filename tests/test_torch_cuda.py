@@ -849,3 +849,128 @@ def test_cuda_windowed_decode_matches_full_cache(cuda):
     assert all(c["k"].shape[1] == 4 and c["k"].device.type == cuda.type for c in cache)
     for t, (a, b) in enumerate(zip(full, win)):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-5, msg=f"step {t}")
+
+
+# ---------------------------------------------------------------------------
+# encdec, vlm and training on the card
+# ---------------------------------------------------------------------------
+def _smoke32(arch, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+
+    return dataclasses.replace(smoke_config(get_config(arch)), compute_dtype="float32", **kw)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "phi-3-vision-4.2b"])
+def test_cuda_encdec_vlm_decode_matches_forward(cuda, arch):
+    """whisper (frames) and phi-3-vision (patches) on the card: prefill's
+    last logits and 4 decode steps against teacher-forced forward within
+    rtol 2e-3 / atol 2e-4 (``tests/test_models_smoke.py:71``), and each
+    within 1e-5 of the same model on the CPU."""
+    from repro_torch.models import build_model
+
+    cfg = _smoke32(arch)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 14)).astype(np.int32)
+    extra = {}
+    if cfg.enc_len:
+        extra["frames"] = rng.standard_normal((2, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    if cfg.num_patches:
+        extra["patches"] = rng.standard_normal(
+            (2, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    p = cfg.num_patches
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        api = build_model(cfg, device=dev)
+        params = api.init_params(torch.Generator().manual_seed(0)).to(dev)
+        full = api.forward(params, dict(extra, tokens=toks))
+        logits, cache = api.prefill(params, dict(extra, tokens=toks[:, :10]),
+                                    api.init_cache(2, 32))
+        steps = [logits]
+        torch.testing.assert_close(logits, full[:, p + 9], rtol=2e-3, atol=2e-4)
+        for t in range(10, 14):
+            logits, cache = api.decode_step(params, toks[:, t:t + 1], p + t, cache)
+            torch.testing.assert_close(logits, full[:, p + t], rtol=2e-3, atol=2e-4)
+            steps.append(logits)
+        outs[dev.type] = steps
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_cuda_train_step_equals_cpu(cuda, microbatches):
+    """One train step of gemma-2b's smoke widths (2 layers, float32, remat)
+    on the card against the same step on the CPU: loss rtol 1e-5, μ rtol
+    1e-4 / atol 1e-8, ν rtol 1e-4 / atol 1e-10, parameters rtol 2e-4 / atol
+    2e-5 (``tests/test_train.py:57``) except where √v̂ < 1e-6, Adam's
+    ill-conditioned direction, held to 2.5·lr."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+
+    cfg = _smoke32("gemma-2b", num_layers=2, layer_pattern=(0, 0))
+    opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        api = build_model(cfg, device=dev, remat=True)
+        params = api.init_params(torch.Generator().manual_seed(0)).to(dev)
+        step = make_train_step(api.loss_fn, opt, microbatches=microbatches)
+        out[dev.type] = step(init_train_state(params),
+                             synthetic_batch(cfg, DataConfig(16, 4), 0, device=dev))
+    (gs, gm), (ws, wm) = out["cuda"], out["cpu"]
+    assert float(gm["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-5)
+    want = dict(ws.params.named_parameters())
+    for n, p in gs.params.named_parameters():
+        torch.testing.assert_close(gs.opt.mu[n].cpu(), ws.opt.mu[n], rtol=1e-4, atol=1e-8)
+        torch.testing.assert_close(gs.opt.nu[n].cpu(), ws.opt.nu[n], rtol=1e-4, atol=1e-10)
+        ill = torch.sqrt(ws.opt.nu[n] / (1 - opt.b2)) < 1e-6
+        d = (p.detach().cpu() - want[n].detach()).abs()
+        off = d > 2e-5 + 2e-4 * want[n].detach().abs()
+        assert not (off & ~ill).any(), n
+        assert (d[off] <= 2.5 * opt.lr).all(), n
+
+
+def test_cuda_resume_equals_uninterrupted(cuda, tmp_path):
+    """``run_resumable`` on the card: a failure at step 4 after the
+    checkpoint at step 3, then a resume, ends within rtol 2e-4 / atol 2e-5
+    of an uninterrupted run of 6 steps.  The embedding's backward sums by
+    atomics, so the runs need not be bit-equal, and where √v̂ < 1e-6 Adam's
+    direction is ill-conditioned: there each step may move a parameter by
+    up to 2.5·lr apart."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.training import (
+        AdamWConfig,
+        FaultConfig,
+        init_train_state,
+        make_train_step,
+        run_resumable,
+    )
+
+    cfg = _smoke32("gemma-2b", num_layers=2, layer_pattern=(0, 0))
+    api = build_model(cfg, device=cuda)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    step = make_train_step(api.loss_fn, opt)
+
+    def init():
+        return init_train_state(api.init_params(torch.Generator(cuda).manual_seed(0)))
+
+    def batch_fn(s):
+        return synthetic_batch(cfg, DataConfig(16, 4), s, device=cuda)
+
+    ref = init()
+    for s in range(6):
+        ref, _ = step(ref, batch_fn(s))
+    fault = FaultConfig(ckpt_dir=str(tmp_path), save_every=3, max_steps=6)
+    with pytest.raises(RuntimeError, match="simulated node failure"):
+        run_resumable(fault, init, step, batch_fn, fail_at_step=4)
+    state, steps_run, _ = run_resumable(fault, init, step, batch_fn)
+    assert steps_run == 3 and int(state.opt.step) == 6
+    got = dict(state.params.named_parameters())
+    for n, a in ref.params.named_parameters():
+        d = (got[n] - a).abs().detach()
+        off = d > 2e-5 + 2e-4 * a.detach().abs()
+        ill = torch.sqrt(ref.opt.nu[n] / (1 - opt.b2 ** 6)) < 1e-6
+        assert not (off & ~ill).any(), n
+        assert (d[off] <= 2.5 * opt.lr * 6).all(), n

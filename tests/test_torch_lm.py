@@ -30,7 +30,6 @@ from repro.serving import Request as RRequest  # noqa: E402
 from repro.serving import ServingEngine as REngine  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
-from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
@@ -167,18 +166,25 @@ def test_decode_matches_forward(models):
     torch.testing.assert_close(got, full[:, s], rtol=2e-3, atol=2e-4)
 
 
-def test_later_slices_raise(models):
-    """What the port still refuses: the encdec (whisper) and vlm
-    (phi-3-vision) families, ``loss_fn`` and cross-attention."""
-    _, _, api, params = models
-    for arch in ("whisper-medium", "phi-3-vision-4.2b"):
-        with pytest.raises(NotImplementedError):
-            build_model(smoke_config(get_config(arch)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        api.loss_fn(params, {})
-    x = torch.zeros((1, 4, api.cfg.d_model))
-    with pytest.raises(NotImplementedError):
-        tattn.cross_attention_cached(x, None, api.cfg, None, None)
+def test_later_slices_raise():
+    """What the port still refuses, as the reference does: whisper through
+    ``ServingEngine``.  The engine hands prefill only the tokens and the
+    encoder needs frames, so both packages raise ``KeyError: 'frames'``
+    (the reference's ``serving/engine.py:59`` against ``models/decode.py:107``;
+    a reference fault the port copies)."""
+    rcfg = dataclasses.replace(rsmoke(rget_config("whisper-medium")), compute_dtype="float32")
+    cfg = dataclasses.replace(smoke_config(get_config("whisper-medium")),
+                              compute_dtype="float32")
+    rapi = rbuild(rcfg, remat=False)
+    rparams = rapi.init_params(jax.random.PRNGKey(0))
+    api = build_model(cfg, device="cpu")
+    params = lm_params_from_jax(jax.tree.map(np.asarray, rparams), cfg)
+    prompt = np.arange(1, 5, dtype=np.int32)
+    with pytest.raises(KeyError, match="frames") as want:
+        REngine(rapi, rparams, batch_size=1, max_len=16).serve([RRequest(0, prompt, 2)])
+    with pytest.raises(KeyError, match="frames") as got:
+        ServingEngine(api, params, batch_size=1, max_len=16).serve([Request(0, prompt, 2)])
+    assert got.value.args == want.value.args == ("frames",)
 
 
 def test_cuda_requested_without_gpu_raises(models, monkeypatch):
