@@ -161,7 +161,24 @@ exits non-zero.  It prints, in order:
    step ms p50, tokens/s, first and last loss (finite), peak memory and the
    busy share of a profiled step; (d) ``run_resumable`` at smoke size on the
    card, a failure at step 4 and a resume, against an uninterrupted run;
-13. a ``{"kernels": [...]}`` JSON line, then the card line, then the
+13. the sharding rules, the compressed all-reduce, the H100 roofline and
+   the dry-run drivers, after phase 12, in at most 60 s: (a) gemma-2b at
+   full width cut to 2 layers, float32, phase 12(b)'s seed and batch, its
+   parameters as DTensors by ``distributed.sharding``'s rules on a 1×1 mesh
+   of a one-rank NCCL group under ``set_sharding_context``: the loss, every
+   gradient leaf and the parameters after one AdamW step against the same
+   step unsharded (rtol 2e-4 / atol 2e-5, the max difference printed);
+   ``compressed_psum`` over the group at 12 bits equal to
+   ``truncate_to_grid`` with residual g + r − q bit for bit; a save of the
+   stepped parameters and restore(shardings=) onto the mesh bit for bit;
+   (b) ``structured_roofline`` (a one-rank "fake" group, meta tensors) of
+   gemma-2b's train step at phase 12(c)'s shape and decode step at phase
+   7(d)'s, its terms beside the p50s measured there and the share of the
+   bound each reaches (printed, not gated; the gate: counted train FLOPs
+   within [1.0, 1.5] × 6·N·T); (c) ``launch.ppr_dryrun --workload
+   ppr-pod-16m`` and ``launch.dryrun --arch gemma-2b --shape decode_32k
+   --mesh single`` as subprocesses, exit 0 and the reference's JSON keys;
+14. a ``{"kernels": [...]}`` JSON line, then the card line, then the
    ``{"ok": true, ...}`` line last.
 
 Everything too long for the end of the output goes to
@@ -184,9 +201,12 @@ K = 16
 V_TILE = 512
 PACKET = 256
 ALPHA = 0.85
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
-PEAK_FLOPS = {"f32": 67e12,        # float32 CUDA cores, NVIDIA data sheet
-              "bf16": 989e12}      # bf16 dense tensor cores
+# the card's rates, set in main() from repro_torch.roofline.analysis, so that the
+# kernel table's bounds and the dry run share one set of constants (H100 SXM
+# data sheet: HBM3 3.35e12 B/s; 67e12 FLOP/s float32 on the CUDA cores, 989e12
+# bf16 dense on the tensor cores)
+HBM_BYTES_PER_S = None
+PEAK_FLOPS = None
 WARMUP, REPEATS = 3, 15
 
 
@@ -232,6 +252,14 @@ def _time_ms(torch, fn, repeats=REPEATS, hide_host=False):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _load_constants() -> None:
+    global HBM_BYTES_PER_S, PEAK_FLOPS
+    from repro_torch.roofline import analysis
+
+    HBM_BYTES_PER_S = analysis.HBM_BW
+    PEAK_FLOPS = {"f32": analysis.PEAK_FLOPS_F32, "bf16": analysis.PEAK_FLOPS}
 
 
 def _bound_ms(nbytes: float) -> float:
@@ -4228,6 +4256,289 @@ def encdec_train_phase(torch, np, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the sharding rules, the compressed all-reduce, the H100 roofline and
+# the dry-run drivers
+# ---------------------------------------------------------------------------
+PHASE13_BUDGET_S = 60
+# counted train FLOPs / 6·N·T at phase 12(c)'s shape: remat recomputes the
+# layers' forward (4/3 on them), and the float32 head over gemma-2b's 256,000
+# rows runs three products a step that 6·N·T counts at the embedding's share
+TRAIN_FLOP_FACTOR = (1.0, 1.5)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _gemma_x2():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("gemma-2b"), num_layers=2, layer_pattern=(0, 0),
+                               compute_dtype="float32")
+
+
+def sharding_hooks(torch, np, dev):
+    """(a) gemma-2b at full width cut to 2 layers, float32, phase 12(b)'s seed
+    and batch: its parameters as DTensors on a 1×1 mesh of a one-rank NCCL
+    group, ``set_sharding_context(mesh)``, the loss, every gradient leaf and
+    the parameters after one AdamW step against the same step unsharded on
+    the card; ``compressed_psum`` over the group at 12 fractional bits; a
+    save of the stepped parameters and the step, restored onto the mesh with
+    ``shardings=``."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.core.quantization import truncate_to_grid
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.collectives import compressed_psum
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, checkpoint
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+
+    cfg = _gemma_x2()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    api = build_model(cfg, device=dev, remat=True)
+    batch = synthetic_batch(cfg, DataConfig(seq_len=64, global_batch=2), 0, dev)
+
+    def step(params, bt):
+        loss = api.loss_fn(params, bt)
+        loss.backward()
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        state = init_opt_state(params)
+        adamw_update(opt, grads, state, params)
+        return loss.detach(), grads, state
+
+    def fresh():
+        return api.init_params(torch.Generator(dev).manual_seed(0)).requires_grad_(True)
+
+    want_params = fresh()
+    want_loss, want_grads, _ = step(want_params, batch)
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        params = shd.distribute_params(fresh(), mesh, cfg)
+        specs = shd.batch_specs(batch, mesh)
+        dbatch = {k: shd.distribute(v, mesh, specs[k], k) for k, v in batch.items()}
+        shd.set_sharding_context(mesh)
+        try:
+            with implicit_replication():
+                loss, grads, state = step(params, dbatch)
+        finally:
+            shd.set_sharding_context(None)
+        diffs = {"loss": float((loss.full_tensor() - want_loss).abs())}
+        gmax = 0.0
+        for n, w in want_grads.items():
+            g = grads[n].full_tensor()
+            gmax = max(gmax, float((g - w).abs().max()))
+            if not torch.allclose(g, w, **TRAIN_TOL):
+                _fail(f"(a) the sharded gradient of {n} is {float((g - w).abs().max()):.3e} "
+                      f"from the unsharded one")
+        pmax = 0.0
+        for n, w in want_params.named_parameters():
+            w = w.detach()
+            p = params.get_parameter(n).full_tensor().detach()
+            pmax = max(pmax, float((p - w).abs().max()))
+            if not torch.allclose(p, w, **TRAIN_TOL):
+                _fail(f"(a) after one AdamW step the sharded {n} is "
+                      f"{float((p - w).abs().max()):.3e} from the unsharded one")
+        if abs(diffs["loss"]) > TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(float(want_loss)):
+            _fail(f"(a) the sharded loss is {diffs['loss']:.3e} from the unsharded one")
+        diffs.update(grad_max_abs=gmax, param_max_abs=pmax)
+        out["step_vs_unsharded"] = diffs
+        # compressed_psum over the NCCL group: q = trunc(g + r), r' = g + r − q
+        gen = torch.Generator(dev).manual_seed(1)
+        for n, g in want_grads.items():
+            r = torch.randn(g.shape, generator=gen, device=dev) * 2.0 ** -14
+            red, r2 = compressed_psum(g, r, "data", 12, mesh=mesh)
+            q = truncate_to_grid(g + r, 12)
+            if not (torch.equal(red, q) and torch.equal(r2, (g + r) - q)):
+                _fail(f"(a) compressed_psum of {n} over the NCCL group is not "
+                      f"truncate_to_grid with residual g + r - q, bit for bit")
+        out["compressed_psum_leaves"] = len(want_grads)
+        # save, then restore onto the mesh
+        named = dict(params.named_parameters())
+        saved = {"params": {n: p.full_tensor() for n, p in named.items()}, "step": state.step}
+        like = {"params": {n: torch.zeros_like(t) for n, t in saved["params"].items()},
+                "step": torch.zeros_like(state.step)}
+        shardings = {"params": {n: (mesh, p.placements) for n, p in named.items()},
+                     "step": None}
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint.save(d, 1, saved)
+            got = checkpoint.restore(d, 1, like, shardings=shardings)
+        for n, t in saved["params"].items():
+            r = got["params"][n]
+            if tuple(r.placements) != tuple(named[n].placements) or \
+                    not torch.equal(r.full_tensor(), t):
+                _fail(f"(a) restore(shardings=) of {n} is not the saved tensor bit for bit")
+        if not torch.equal(got["step"], saved["step"]):
+            _fail("(a) restore(shardings=) of the step is not the saved one")
+        out["save_restore_s"] = time.perf_counter() - t0
+        out["save_restore_bytes"] = sum(t.numel() * 4 for t in saved["params"].values())
+    finally:
+        dist.destroy_process_group()
+    print(f"[dist] (a) gemma-2b x2 f32 on a 1x1 NCCL mesh under set_sharding_context: loss, "
+          f"{len(want_grads)} gradient leaves and the parameters after one AdamW step "
+          f"within rtol 2e-4 / atol 2e-5 of the unsharded step (max abs diff loss "
+          f"{out['step_vs_unsharded']['loss']:.3e}, gradients {gmax:.3e}, parameters "
+          f"{pmax:.3e}); compressed_psum at 12 bits = truncate_to_grid, residual g + r - q, "
+          f"bit for bit on {len(want_grads)} leaves; save + restore(shardings=) of "
+          f"{out['save_restore_bytes'] / 1e9:.2f} GB bit for bit in "
+          f"{out['save_restore_s']:.1f} s")
+    return out
+
+
+def roofline_vs_card(torch, measured, card):
+    """(b) ``structured_roofline`` on a 1×1 mesh (device type "cuda", a
+    one-rank "fake" group: the count runs on meta tensors) of gemma-2b's
+    train step at phase 12(c)'s shape and its decode step at phase 7(d)'s,
+    each beside the p50 this run measured there."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.roofline.structured import structured_roofline
+
+    cfg = get_config("gemma-2b")
+    cases = {"train": (ShapeConfig("train_b8_s256", "train", 256, 8),
+                       measured.get("train_step_ms_p50"), "phase 12(c) step ms p50"),
+             "decode": (ShapeConfig("decode_b32_c1152", "decode",
+                                    SERVE_PROMPT + SERVE_NEW, SERVE_BATCH),
+                        measured.get("decode_step_ms_p50"), "phase 7(d) decode step ms p50")}
+    out = {}
+    with fake_group(1):
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        for name, (shape, ms, what) in cases.items():
+            t0 = time.perf_counter()
+            r = structured_roofline(cfg, shape, mesh)
+            r["count_s"] = time.perf_counter() - t0
+            bound_ms = 1e3 * max(r["compute_s_by_dtype"], r["memory_s"], r["collective_s"])
+            r.update(measured_ms=ms, measured=what, bound_ms=bound_ms,
+                     share_of_bound=(bound_ms / ms) if ms else None,
+                     flop_factor=r["flops_per_device"] / r["model_flops"])
+            out[name] = r
+            seen = "not measured" if ms is None else f"{ms:.2f}"
+            share = "n/a" if ms is None else f"{r['share_of_bound']:.4f}"
+            print(f"[roofline] (b) gemma-2b {name} B={shape.global_batch} "
+                  f"{'S' if name == 'train' else 'cache'}={shape.seq_len} bf16 on 1x1: FLOPs "
+                  f"{r['flops_per_device']:.4e} ({r['flop_factor']:.4f} x the analytic "
+                  f"{'6' if name == 'train' else '2'}NT; float32 "
+                  f"{r['flops_by_dtype'].get('float32', 0.0):.4e}), unfused bytes "
+                  f"{r['bytes_per_device']:.4e}; terms compute {r['compute_s'] * 1e3:.3f} ms "
+                  f"(by type {r['compute_s_by_dtype'] * 1e3:.3f}), memory "
+                  f"{r['memory_s'] * 1e3:.3f} ms, collective {r['collective_s'] * 1e3:.3f} ms, "
+                  f"bottleneck {r['bottleneck']}; {what} {seen}, share of the bound "
+                  f"{share} ({card}); counted in {r['count_s']:.1f} s")
+    lo, hi = TRAIN_FLOP_FACTOR
+    if not lo <= out["train"]["flop_factor"] <= hi:
+        _fail(f"(b) gemma-2b's counted train FLOPs are {out['train']['flop_factor']:.4f} x "
+              f"6NT, outside [{lo}, {hi}]")
+    return out
+
+
+def _start_driver(args, out_dir):
+    import os
+
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m"] + args + ["--out", out_dir], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+
+
+def _driver_json(started, args, out_dir, files, timeout=300):
+    """Wait for a driver started by ``_start_driver``; its exit code and the
+    reference's keys in each of its JSON files."""
+    t0, proc = started
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        _fail(f"(c) {' '.join(args)} exited {proc.returncode}:\n{stdout[-2000:]}\n"
+              f"{stderr[-4000:]}")
+    recs = {}
+    for f, keys in files.items():
+        rec = json.loads((Path(out_dir) / f).read_text())
+        missing = set(keys) - set(rec)
+        if missing:
+            _fail(f"(c) {f} lacks the reference's keys {sorted(missing)}")
+        recs[f] = rec
+    return dict(wall_s=wall, stdout=stdout, records=recs)
+
+
+def drivers_on_host(np):
+    """(c) the dry-run drivers on the card's host, as subprocesses (each its
+    own 512-rank "fake" group): ``ppr_dryrun --workload ppr-pod-16m`` and,
+    in the budget's place of the full ``train_4k`` cell (whose counted run
+    takes ~2 minutes; PERF.md records it), ``dryrun --arch gemma-2b --shape
+    decode_32k --mesh single``."""
+    import tempfile
+
+    ppr_keys = ["workload", "mesh", "V", "E", "kappa_total", "flops_per_device",
+                "bytes_per_device", "collective_bytes_per_device", "collectives", "memory_s",
+                "collective_s"]
+    cell_keys = ["arch", "shape", "mesh", "chips", "opt_level", "params", "active_params",
+                 "lower_s", "compile_s", "memory_analysis", "cost_flops", "cost_bytes",
+                 "roofline"]
+    ppr_args = ["repro_torch.launch.ppr_dryrun", "--workload", "ppr-pod-16m"]
+    cell_args = ["repro_torch.launch.dryrun", "--arch", "gemma-2b", "--shape", "decode_32k",
+                 "--mesh", "single"]
+    out = {}
+    with tempfile.TemporaryDirectory() as d:      # both at once: each is mostly start-up
+        ppr, cell = _start_driver(ppr_args, d), _start_driver(cell_args, d)
+        out["ppr_dryrun"] = _driver_json(ppr, ppr_args, d, {
+            f"ppr__ppr-pod-16m__{m}.json": ppr_keys
+            for m in ("single_pod_16x16", "multi_pod_2x16x16")})
+        out["dryrun"] = _driver_json(cell, cell_args, d, {
+            "single_pod_16x16/gemma-2b__decode_32k.json": cell_keys})
+    for name, r in out.items():
+        for f, rec in r["records"].items():
+            terms = rec.get("roofline", rec)
+            print(f"[drivers] (c) {name} -> {f}: memory_s {terms['memory_s']:.4e}, "
+                  f"collective_s {terms['collective_s']:.4e} (predictions from the H100 "
+                  f"constants); subprocess {r['wall_s']:.1f} s")
+    return out
+
+
+def sharding_phase(torch, np, dev, card, measured):
+    """Phase 13: (a) the sharding hooks on a real group, (b) the roofline
+    beside the card's own steps, (c) the dry-run drivers; ≤ 60 s."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = dict(hooks=sharding_hooks(torch, np, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["roofline"] = roofline_vs_card(torch, measured, card)
+    t2 = time.perf_counter()
+    out["drivers"] = drivers_on_host(np)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[dist] phase 13 took {out['wall_s']:.1f} s of its {PHASE13_BUDGET_S} s budget "
+          f"((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {time.perf_counter() - t2:.1f})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     try:
         import torch
@@ -4246,6 +4557,8 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.kernels import _build
+
+    _load_constants()
 
     card = _card_line()
     dev = torch.device("cuda")
@@ -4298,6 +4611,9 @@ def main() -> int:
     lm = lm_serving_phase(torch, np, dev)
     families = lm_families_phase(torch, np, dev)
     encdec_train = encdec_train_phase(torch, np, dev, card)
+    sharding = sharding_phase(torch, np, dev, card, measured={
+        "train_step_ms_p50": encdec_train["full_width"]["gemma-2b"]["step_ms_p50"],
+        "decode_step_ms_p50": lm["serving_shape"]["decode_step_ms_p50"]})
 
     print("[times] kernel graph domain: ms plain_ms bound_ms library_ms "
           "function_bound_ms bound_share | device_ms device_bound_share "
@@ -4411,7 +4727,7 @@ def main() -> int:
             k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
             for k, v in encdec_train["full_width"].items()}),
         train_stdout={k: v["stdout"] for k, v in encdec_train["full_width"].items()},
-        kernels=kernels), indent=1))
+        sharding=sharding, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

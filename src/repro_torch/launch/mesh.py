@@ -13,8 +13,12 @@ host every shard sits on ``cuda:0``, as the reference's shards sit on
 virtual CPU devices in its tests), so the partitioning, each shard's kernel
 and the gather run as on a larger host, without copies between cards.
 
-The reference's LM meshes (``make_production_mesh``, ``make_debug_mesh``)
-come with the rest of the LM stack.
+The reference's LM meshes, ``make_production_mesh`` and ``make_debug_mesh``,
+are of another kind: ``torch.distributed.device_mesh.DeviceMesh``es over
+the ranks of the default process group, with the reference's axis names,
+for the sharding rules of ``distributed/`` (one rank a device, as
+``jax.make_mesh`` takes one device a position).  The dry-run drivers build
+them on a ``"fake"`` process group of 512 ranks, which needs no card.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "make_debug_mesh"]
 
 
 class Mesh:
@@ -91,3 +95,27 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     arr = np.empty(n, dtype=object)
     arr[:] = list(devices)
     return Mesh(arr.reshape(shape), axis_names)
+
+
+def _device_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device_type: str):
+    """A ``DeviceMesh`` over the first prod(shape) ranks of the default group
+    (``jax.make_mesh`` takes the first devices likewise)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = int(np.prod(shape))
+    world = torch.distributed.get_world_size()
+    if world < n:
+        raise ValueError(f"a mesh of shape {shape} needs {n} ranks; the group has {world}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """16×16 = 256 devices per pod; 2 pods = 512 devices multi-pod."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, axes, device_type)
+
+
+def make_debug_mesh(data: int = 2, model: int = 2, device_type: str = "cuda"):
+    """Small mesh for CI-scale distributed tests (needs ≥ data·model ranks)."""
+    return _device_mesh((data, model), ("data", "model"), device_type)

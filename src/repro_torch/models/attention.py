@@ -8,10 +8,13 @@ eager).  ``cross_attention_cached`` is whisper's decoder cross-attention
 against the encoder's K/V (no mask, no rope, no softcap).
 ``_attend`` keeps the reference's einsum form (scores in the input dtype,
 softmax in float32); the model path does not call the flash kernel, as the
-reference's does not call its Pallas one.
+reference's does not call its Pallas one.  Each projection passes
+``shard_heads`` before it is split into heads (the identity unless a
+sharding context is set).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -19,6 +22,15 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    batch_axes,
+    constrain,
+    heads_layout,
+    local_region,
+    model_start,
+    shard_heads,
+    write_positions,
+)
 from repro_torch.models.common import dense_init, rmsnorm, rope, softcap
 
 __all__ = ["Attention", "attention", "prefill_kv", "decode_attention",
@@ -49,16 +61,19 @@ def _project_qkv(x, p, cfg: ModelConfig, positions):
     """x [B,S,D] → q [B,S,H,hd], k/v [B,S,KV,hd] with rope/qk-norm applied."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, kv, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, kv, hd)
+    # every layout follows the kv heads: q is split into kv groups later;
+    # the input is gathered once for the three projections
+    x = constrain(x, (batch_axes(b),))
+    q = shard_heads(x @ p["wq"].to(x.dtype), kv).reshape(b, s, h, hd)
+    k = shard_heads(x @ p["wk"].to(x.dtype), kv).reshape(b, s, kv, hd)
+    v = shard_heads(x @ p["wv"].to(x.dtype), kv).reshape(b, s, kv, hd)
     if cfg.use_qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     if not cfg.learned_pos:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return shard_heads(q, kv), shard_heads(k, kv), v
 
 
 def _attend(q, k, v, qpos, kpos, cfg: ModelConfig, causal: bool) -> torch.Tensor:
@@ -114,28 +129,51 @@ def _attend_masked_window(q, k, v, qpos, kpos, cfg: ModelConfig, causal: bool,
     return torch.einsum("bkgqs,bskd->bqkgd", w, v).reshape(b, qc, h, hd)
 
 
+def _attend_chunks(q, k, v, cfg: ModelConfig, causal: bool, window: int, chunk: int,
+                   q_start: int) -> torch.Tensor:
+    """q [B, Sq, H, hd], the positions q_start … q_start+Sq−1, against k/v
+    [B, S, KV, hd] in query chunks of the largest divisor of Sq that is ≤
+    ``chunk`` (e.g. 1500 → 500) → [B, Sq, H, hd]."""
+    s = k.shape[1]
+    qc = min(chunk, q.shape[1])
+    while q.shape[1] % qc:
+        qc -= 1
+    kpos_full = torch.arange(s, device=q.device)
+    outs = []
+    for start in range(0, q.shape[1], qc):
+        qi = q[:, start:start + qc]
+        if window and window < s:
+            outs.append(_attend_window(qi, k, v, q_start + start, cfg, causal, window))
+        else:
+            qpos = q_start + start + torch.arange(qc, device=q.device)
+            outs.append(_attend(qi, k, v, qpos, kpos_full, cfg, causal))
+    return torch.cat(outs, dim=1)
+
+
 def attention(x, p, cfg: ModelConfig, *, window: int, causal: bool = True,
               chunk: int = 512, return_kv: bool = False):
     """Training/prefill attention over a full sequence.  x [B,S,D] → [B,S,D].
 
     Queries go in chunks of the largest divisor of S that is ≤ ``chunk``, as
-    in the reference (there a scan, here a loop)."""
+    in the reference (there a scan, here a loop).  Under a sharding context
+    whose model axis holds positions (the kv heads do not divide it), each
+    device attends its own query positions to the whole K/V, in chunks of
+    its own: a region of one device's program, whose K/V gradients are its
+    share of a sum over the model axis."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(x, p, cfg, positions)
-    kpos_full = torch.arange(k.shape[1], device=x.device)
-    qc = min(chunk, s)
-    while s % qc:       # largest divisor of S ≤ chunk (e.g. 1500 → 500)
-        qc -= 1
-    outs = []
-    for start in range(0, s, qc):
-        qi = q[:, start:start + qc]
-        if window and window < s:
-            outs.append(_attend_window(qi, k, v, start, cfg, causal, window))
-        else:
-            qpos = start + torch.arange(qc, device=x.device)
-            outs.append(_attend(qi, k, v, qpos, kpos_full, cfg, causal))
-    out = torch.cat(outs, dim=1).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    kv = cfg.num_kv_heads
+    if heads_layout(kv, s) == "positions":
+        dp = batch_axes(b)
+        mine = functools.partial(_attend_chunks, cfg=cfg, causal=causal, window=window,
+                                 chunk=chunk, q_start=model_start(s))
+        out = local_region(mine, ((dp, "model"), (dp,), (dp,)), (dp, "model"),
+                           partial_grads={1: "model", 2: "model"})(q, k, v)
+    else:
+        out = _attend_chunks(q, k, v, cfg, causal, window, chunk, 0)
+    out = shard_heads(out, kv)
+    out = shard_heads(out.reshape(b, s, cfg.num_heads * cfg.head_dim), kv)
     y = out @ p["wo"].to(x.dtype)
     if return_kv:
         return y, k, v
@@ -170,8 +208,8 @@ def _write_row(x, p, cfg: ModelConfig, cache_k, cache_v, pos: int, slot: int):
     """Project the token at ``pos`` and write its K/V row at ``slot``; → q."""
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _project_qkv(x, p, cfg, positions)
-    cache_k[:, slot:slot + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, slot:slot + 1] = v_new.to(cache_v.dtype)
+    write_positions(cache_k, slot, k_new)
+    write_positions(cache_v, slot, v_new)
     return q
 
 
@@ -186,9 +224,8 @@ def _attend_cached(x, q, p, cfg: ModelConfig, cache_k, cache_v, valid) -> torch.
     scores = softcap(scores / math.sqrt(hd), cfg.attn_softcap)
     scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w,
-                       cache_v.to(q.dtype)).reshape(b, 1, h * hd)
-    return out @ p["wo"].to(x.dtype)
+    out = shard_heads(torch.einsum("bkgqs,bskd->bqkgd", w, cache_v.to(q.dtype)), kvh)
+    return shard_heads(out.reshape(b, 1, h * hd), kvh) @ p["wo"].to(x.dtype)
 
 
 def decode_attention_windowed(x, p, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
@@ -213,8 +250,8 @@ def fill_windowed_cache(cache_k, cache_v, k, v):
     w = cache_k.shape[1]
     sp = k.shape[1]
     if sp <= w:
-        cache_k[:, :sp] = k.to(cache_k.dtype)
-        cache_v[:, :sp] = v.to(cache_v.dtype)
+        write_positions(cache_k, 0, k)
+        write_positions(cache_v, 0, v)
         return cache_k, cache_v
     positions = sp - w + torch.arange(w, device=k.device)
     slots = positions % w
@@ -229,10 +266,10 @@ def cross_attention_cached(x, p, cfg: ModelConfig, cross_k, cross_v) -> torch.Te
     in x's dtype, the softmax in float32, as the reference."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    q = shard_heads(x @ p["wq"].to(x.dtype), kvh).reshape(b, s, h, hd)
     qg = q.reshape(b, s, kvh, h // kvh, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, cross_k.to(x.dtype)).to(torch.float32)
     scores = scores / math.sqrt(hd)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, cross_v.to(x.dtype)).reshape(b, s, h * hd)
-    return out @ p["wo"].to(x.dtype)
+    out = shard_heads(torch.einsum("bkgqs,bskd->bqkgd", w, cross_v.to(x.dtype)), kvh)
+    return shard_heads(out.reshape(b, s, h * hd), kvh) @ p["wo"].to(x.dtype)

@@ -29,6 +29,7 @@ from typing import Any, Dict, List, Union
 import torch
 
 from repro_torch.configs.base import MAMBA, ModelConfig
+from repro_torch.distributed.sharding import shard_activation, write_positions
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import norm
@@ -88,15 +89,15 @@ def build_decode_fns(cfg: ModelConfig, device: torch.device):
                                              block["attn"], cfg, window=w, causal=True,
                                              return_kv=True)
                 cross = block.cross_kv(enc_out, cfg) if is_encdec else None
-                h = block.finish(h, a, cfg, cross)
+                h = shard_activation(block.finish(h, a, cfg, cross))
                 if cross is not None:
                     c["ck"].copy_(cross[0])
                     c["cv"].copy_(cross[1])
                 if _rolling(w, c):
                     attn_mod.fill_windowed_cache(c["k"], c["v"], k, v)
                 else:
-                    c["k"][:, :k.shape[1]] = k.to(c["k"].dtype)
-                    c["v"][:, :v.shape[1]] = v.to(c["v"].dtype)
+                    write_positions(c["k"], 0, k)
+                    write_positions(c["v"], 0, v)
         h = norm(h, params.final_norm, cfg.norm)
         return params.logits(h[:, -1:, :], cfg)[:, 0], cache
 
@@ -104,7 +105,7 @@ def build_decode_fns(cfg: ModelConfig, device: torch.device):
         y, state = ssm_mod.mamba_layer_with_state(norm(h, block["ln1"], cfg.norm),
                                                   block["mamba"], cfg)
         c.update(state)
-        return h + y
+        return shard_activation(h + y)
 
     def _prefill_ssm(params, h, cache):
         if not cfg.shared_attn_every:
@@ -115,10 +116,10 @@ def build_decode_fns(cfg: ModelConfig, device: torch.device):
         for gi, start, stop in shared_groups(cfg):
             a, k, v = attn_mod.attention(norm(h, sa["ln1"], cfg.norm), sa["attn"], cfg,
                                          window=0, return_kv=True)
-            h = sa.finish(h, a, cfg)
+            h = shard_activation(sa.finish(h, a, cfg))
             sc = cache["shared"][gi]
-            sc["k"][:, :k.shape[1]] = k.to(sc["k"].dtype)
-            sc["v"][:, :v.shape[1]] = v.to(sc["v"].dtype)
+            write_positions(sc["k"], 0, k)
+            write_positions(sc["v"], 0, v)
             for block, c in zip(params.layers[start:stop], cache["mamba"][start:stop]):
                 h = _prefill_mamba(block, h, c)
         return h
@@ -141,7 +142,8 @@ def build_decode_fns(cfg: ModelConfig, device: torch.device):
                         else attn_mod.decode_attention)
                 a, c["k"], c["v"] = step(norm(h, block["ln1"], cfg.norm), block["attn"],
                                          cfg, c["k"], c["v"], pos, window=w)
-                h = block.finish(h, a, cfg, (c["ck"], c["cv"]) if is_encdec else None)
+                h = shard_activation(
+                    block.finish(h, a, cfg, (c["ck"], c["cv"]) if is_encdec else None))
         h = norm(h, params.final_norm, cfg.norm)
         return params.logits(h, cfg)[:, 0], cache
 
@@ -149,7 +151,7 @@ def build_decode_fns(cfg: ModelConfig, device: torch.device):
         y, state = ssm_mod.mamba_decode_step(norm(h, block["ln1"], cfg.norm),
                                              block["mamba"], cfg, c)
         c.update(state)
-        return h + y
+        return shard_activation(h + y)
 
     def _decode_ssm(params, h, pos, cache):
         if not cfg.shared_attn_every:
@@ -162,7 +164,7 @@ def build_decode_fns(cfg: ModelConfig, device: torch.device):
             a, sc["k"], sc["v"] = attn_mod.decode_attention(
                 norm(h, sa["ln1"], cfg.norm), sa["attn"], cfg, sc["k"], sc["v"], pos,
                 window=0)
-            h = sa.finish(h, a, cfg)
+            h = shard_activation(sa.finish(h, a, cfg))
             for block, c in zip(params.layers[start:stop], cache["mamba"][start:stop]):
                 h = _decode_mamba(block, h, c)
         return h

@@ -8,6 +8,15 @@ multiplies its transpose.  As in the reference: tokens sorted by expert
 (stably: the rank within an expert, and with it which tokens the capacity
 drops, follows token order), capacity-bounded slots, scatter/gather and the
 gate-weighted combine.  Each batch row is dispatched on its own.
+
+Under a sharding context (``distributed.sharding``) the dispatch and the
+combine run as each device's own program on its batch rows
+(``local_region``): the sort, ``searchsorted`` and the slot scatter have no
+DTensor sharding rule, and a row's routing needs the whole row, so the
+sequence is gathered first, as the reference's program gathers it.  The
+expert buffers are pinned where the reference pins them (``constrain`` by
+``moe_mode``: experts → "model" in EP, d_ff → "model" in TP).  With no
+context every one of these is the identity.
 """
 from __future__ import annotations
 
@@ -18,6 +27,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    batch_axes,
+    constrain,
+    local_region,
+    model_if_divides,
+    moe_mode,
+)
 from repro_torch.models.common import act_fn, dense_init
 
 __all__ = ["MLP", "MoE", "init_mlp", "init_moe", "mlp", "moe_ffn", "route",
@@ -47,11 +63,16 @@ def init_mlp(cfg: ModelConfig, generator: Optional[torch.Generator], device=None
 
 
 def mlp(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    # under a sharding context the input is gathered once and whole on each
+    # model device, the hidden units lie over the model axis (column-, then
+    # row-parallel: no weight moves)
+    dp = batch_axes(x.shape[0])
+    x, ff = constrain(x, (dp,)), (dp, None, model_if_divides(cfg.d_ff))
     if cfg.mlp == "glu":
         h = act_fn(x @ p["w_gate"].to(x.dtype), cfg.act) * (x @ p["w_up"].to(x.dtype))
-        return h @ p["w_down"].to(x.dtype)
+        return constrain(h, ff) @ p["w_down"].to(x.dtype)
     h = act_fn(x @ p["w_fc"].to(x.dtype) + p["b_fc"].to(x.dtype), cfg.act)
-    return h @ p["w_proj"].to(x.dtype) + p["b_proj"].to(x.dtype)
+    return constrain(h, ff) @ p["w_proj"].to(x.dtype) + p["b_proj"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -114,18 +135,35 @@ def dispatch(top_idx: torch.Tensor, top_val: torch.Tensor, cap: int, num_experts
     return slot, ts, gs
 
 
+def scatter_slots(x: torch.Tensor, slot, ts, num_experts: int, cap: int) -> torch.Tensor:
+    """Scatter the tokens into their slots: [B, E, cap, D]."""
+    b, _, d = x.shape
+    rows = torch.arange(b, device=x.device)[:, None]
+    xe = torch.zeros((b, num_experts * cap + 1, d), dtype=x.dtype, device=x.device)
+    xe[rows, slot] = x[rows, ts]      # the overflow row takes duplicates; discarded
+    return xe[:, :-1].reshape(b, num_experts, cap, d)
+
+
+def expert_glu(xe: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """Every expert's GLU on its slots [B, E, cap, D] (each expert's weights
+    cast at the use), the buffers pinned by ``moe_mode`` under a context."""
+    mode, dp = moe_mode(cfg.num_experts), batch_axes(xe.shape[0])
+    pin = {"ep": ((dp, "model"), (dp, "model"), (dp, "model")),
+           "tp": ((dp,), (dp, None, None, "model"), (dp,))}.get(mode)
+    if pin:
+        xe = constrain(xe, pin[0])
+    h = act_fn(torch.einsum("becd,edf->becf", xe, p["w_gate"].to(xe.dtype)), cfg.act)
+    h = h * torch.einsum("becd,edf->becf", xe, p["w_up"].to(xe.dtype))
+    if pin:
+        h = constrain(h, pin[1])
+    ye = torch.einsum("becf,efd->becd", h, p["w_down"].to(xe.dtype))
+    return constrain(ye, pin[2]) if pin else ye
+
+
 def experts(x: torch.Tensor, p, cfg: ModelConfig, cap: int, slot, ts) -> torch.Tensor:
     """Scatter the tokens into their slots [B, E, cap, D] and run every
-    expert's GLU on its slots (each expert's weights cast at the use)."""
-    b, _, d = x.shape
-    e = cfg.num_experts
-    rows = torch.arange(b, device=x.device)[:, None]
-    xe = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
-    xe[rows, slot] = x[rows, ts]      # the overflow row takes duplicates; discarded
-    xe = xe[:, :-1].reshape(b, e, cap, d)
-    h = act_fn(torch.einsum("becd,edf->becf", xe, p["w_gate"].to(x.dtype)), cfg.act)
-    h = h * torch.einsum("becd,edf->becf", xe, p["w_up"].to(x.dtype))
-    return torch.einsum("becf,efd->becd", h, p["w_down"].to(x.dtype))
+    expert's GLU on its slots."""
+    return expert_glu(scatter_slots(x, slot, ts, cfg.num_experts, cap), p, cfg)
 
 
 def combine(ye: torch.Tensor, slot, ts, gs, s: int) -> torch.Tensor:
@@ -148,14 +186,18 @@ def combine(ye: torch.Tensor, slot, ts, gs, s: int) -> torch.Tensor:
 def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig, capacity_factor: float = 0.0
             ) -> torch.Tensor:
     """x [B, S, D] → [B, S, D]; top-k routing with capacity, COO-form
-    dispatch.  The reference's ``constrain`` / ``moe_mode`` calls are
-    sharding annotations with no numeric effect; the port has no
-    counterpart (its ``distributed/`` is not ported)."""
-    s = x.shape[1]
+    dispatch."""
+    s, e = x.shape[1], cfg.num_experts
     cap = _capacity(s, cfg, capacity_factor or cfg.moe_capacity_factor)
+    rows = (batch_axes(x.shape[0]),)       # [B, ...] spec: batch rows sharded, rest whole
+    x = constrain(x, rows)
     top_val, top_idx = route(x, p["router"], cfg)
-    slot, ts, gs = dispatch(top_idx, top_val, cap, cfg.num_experts, x.dtype)
-    return combine(experts(x, p, cfg, cap, slot, ts), slot, ts, gs, s)
+    slot, ts, gs = local_region(dispatch, (rows, rows, None, None, None),
+                                [rows, rows, rows])(top_idx, top_val, cap, e, x.dtype)
+    xe = local_region(scatter_slots, (rows, rows, rows, None, None),
+                      rows)(x, slot, ts, e, cap)
+    ye = constrain(expert_glu(xe, p, cfg), rows)
+    return local_region(combine, (rows, rows, rows, rows, None), rows)(ye, slot, ts, gs, s)
 
 
 def router_aux_loss(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import batch_axes, constrain, local_region, model_if_divides
 from repro_torch.models.common import dense_init, rmsnorm
 
 __all__ = ["NGROUPS", "Mamba", "init_mamba", "ssd_chunked", "mamba_layer",
@@ -61,8 +62,11 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _split_proj(xz: torch.Tensor, cfg: ModelConfig):
-    """in_proj output → (z, x, B, C, dt); split at indices, as ``jnp.split``."""
+    """in_proj output → (z, x, B, C, dt); split at indices, as ``jnp.split``.
+    Under a sharding context the output, whose columns the model axis
+    shards without regard to the pieces, is gathered once first."""
     di, st = cfg.ssm_d_inner, cfg.ssm_state
+    xz = constrain(xz, (batch_axes(xz.shape[0]),))
     return torch.tensor_split(
         xz, [di, 2 * di, 2 * di + NGROUPS * st, 2 * di + 2 * NGROUPS * st], dim=-1)
 
@@ -70,7 +74,10 @@ def _split_proj(xz: torch.Tensor, cfg: ModelConfig):
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d: x [B,S,C], w [K,C] → [B,S,C]."""
     k = w.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    # K-1 zero rows before the sequence (a cat: DTensor's pad rule in torch
+    # 2.11 drops a mesh dim from the result's placements)
+    xp = torch.cat([torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                                device=x.device), x], dim=1)
     # Σ_j x[t-k+1+j] w[j], summed in the reference's order
     out = sum(xp[:, j: j + x.shape[1], :] * w[j][None, None, :] for j in range(k))
     return out + b[None, None, :]
@@ -140,14 +147,26 @@ def mamba_layer_with_state(x: torch.Tensor, p, cfg: ModelConfig, chunk: int = 25
     z, xi, B, C, dt = _split_proj(x @ p["w_in"].to(x.dtype), cfg)
     conv_in = torch.cat([xi, B, C], dim=-1)
     conv_out = F.silu(_causal_conv(conv_in, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype)))
+    # channels sharded without regard to the pieces: gathered once (no-op unset)
+    conv_out = constrain(conv_out, (batch_axes(b),))
     xi, B, C = torch.tensor_split(conv_out, [di, di + NGROUPS * st], dim=-1)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"].to(torch.float32))
     xh = xi.reshape(b, s, nh, hd).to(torch.float32)
-    y, final = ssd_chunked(xh, dt, A,
-                           B.reshape(b, s, NGROUPS, st).to(torch.float32),
-                           C.reshape(b, s, NGROUPS, st).to(torch.float32),
-                           min(chunk, s))
+    # the scan is each device's own program under a sharding context: its
+    # batch rows, its heads where they divide the model axis, the whole
+    # sequence (the chunk loop, and cumsum's backward flip, which DTensor in
+    # torch 2.11 has no rule for).  A is whole over the batch devices, B and
+    # C over the model devices: each device holds its rows' or its heads'
+    # part of their gradients
+    dp, hm = batch_axes(b), model_if_divides(nh)
+    scan = local_region(ssd_chunked,
+                        ((dp, None, hm), (dp, None, hm), (hm,), (dp,), (dp,), None),
+                        [(dp, None, hm), (dp, hm)], partial_grads={2: dp, 3: hm, 4: hm})
+    y, final = scan(xh, dt, A,
+                    B.reshape(b, s, NGROUPS, st).to(torch.float32),
+                    C.reshape(b, s, NGROUPS, st).to(torch.float32),
+                    min(chunk, s))
     y = y + xh * p["D"][None, None, :, None]
     y = rmsnorm(y.reshape(b, s, di).to(x.dtype) * F.silu(z), p["norm_w"])
     tail = conv_in[:, -(cfg.ssm_conv - 1):, :].to(torch.float32)
@@ -182,6 +201,7 @@ def mamba_decode_step(x: torch.Tensor, p, cfg: ModelConfig, cache: Dict[str, tor
     window = torch.cat([cache["conv"], conv_in[:, None, :].to(cache["conv"].dtype)], dim=1)
     w = p["conv_w"].to(x.dtype)
     conv_out = F.silu((window * w[None]).sum(1) + p["conv_b"].to(x.dtype))
+    conv_out = constrain(conv_out, (batch_axes(b),))      # gathered once, as above
     xi, B, C = torch.tensor_split(conv_out, [di, di + NGROUPS * st], dim=-1)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"][None, :])             # [B,nh]
     A = -torch.exp(p["A_log"].to(torch.float32))
@@ -189,6 +209,10 @@ def mamba_decode_step(x: torch.Tensor, p, cfg: ModelConfig, cache: Dict[str, tor
     hpg = nh // NGROUPS
     Bh = torch.repeat_interleave(B.reshape(b, NGROUPS, st).to(torch.float32), hpg, dim=1)
     Ch = torch.repeat_interleave(C.reshape(b, NGROUPS, st).to(torch.float32), hpg, dim=1)
+    # under a sharding context the recurrence runs on each device's heads,
+    # where the cache's state lies
+    heads = (batch_axes(b), model_if_divides(nh))
+    xh, dt, Bh, Ch = (constrain(t, heads) for t in (xh, dt, Bh, Ch))
     decay = torch.exp(dt * A[None, :])                                       # [B,nh]
     state = (cache["ssd"] * decay[..., None, None]
              + (dt[..., None] * xh)[..., None] * Bh[:, :, None, :])          # [B,nh,hd,st]

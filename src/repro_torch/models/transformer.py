@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MAMBA, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import shard_activation, shard_heads, vocab_rows
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -110,8 +111,9 @@ class Block(nn.ModuleDict):
         b, se, _ = enc_out.shape
         shape = (b, se, cfg.num_kv_heads, cfg.head_dim)
         p = self["cross"]
-        return ((enc_out @ p["wk"].to(enc_out.dtype)).reshape(shape),
-                (enc_out @ p["wv"].to(enc_out.dtype)).reshape(shape))
+        kv = cfg.num_kv_heads
+        return (shard_heads(enc_out @ p["wk"].to(enc_out.dtype), kv).reshape(shape),
+                shard_heads(enc_out @ p["wv"].to(enc_out.dtype), kv).reshape(shape))
 
     def finish(self, h, a, cfg: ModelConfig, cross=None):
         """The layer after its attention output ``a``: post-norm, residual,
@@ -190,21 +192,22 @@ class Transformer(nn.Module):
     def embed_tokens(self, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """tokens [B,S] → hidden [B,S,D] in ``cfg.act_dtype`` (gathered, then
         cast: the reference casts the whole table first, same values)."""
-        h = self.embed[tokens].to(cfg.act_dtype)
+        h = vocab_rows(self.embed, tokens).to(cfg.act_dtype)
         if cfg.embed_scale:
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype, device=h.device)
         return h
 
     def embed_inputs(self, batch, cfg: ModelConfig, device) -> torch.Tensor:
         """tokens (+ the stub frontend's patch embeddings, before them) →
-        initial hidden states [B, P+S, D], learned positions added."""
+        initial hidden states [B, P+S, D], learned positions added, pinned by
+        ``shard_activation`` (identity unless a sharding context is set)."""
         h = self.embed_tokens(batch_tensor(batch, "tokens", device).long(), cfg)
         if cfg.num_patches and "patches" in batch:
             patches = batch_tensor(batch, "patches", device).to(h.dtype)
             h = torch.cat([patches @ self.patch_proj.to(h.dtype), h], dim=1)
         if cfg.learned_pos:
             h = h + self.pos_embed[:h.shape[1]][None].to(h.dtype)
-        return h
+        return shard_activation(h)
 
     def logits(self, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         w = self.embed.T if cfg.tie_embeddings else self.unembed
@@ -259,7 +262,9 @@ def run_encoder(params: Transformer, frames: torch.Tensor, cfg: ModelConfig,
 def run_decoder(params: Transformer, h: torch.Tensor, cfg: ModelConfig,
                 enc_out: Optional[torch.Tensor] = None, remat: bool = False):
     """Every decoder layer over hidden ``h`` (zamba2: the shared block before
-    each group of mamba layers, itself not recomputed, as the reference)."""
+    each group of mamba layers, itself not recomputed, as the reference).
+    Each layer's output is pinned by ``shard_activation``, as the
+    reference's scanned layers are (not zamba2's)."""
     if cfg.shared_attn_every:
         for _, start, stop in shared_groups(cfg):
             h = params.shared_attn(h, cfg)
@@ -267,7 +272,7 @@ def run_decoder(params: Transformer, h: torch.Tensor, cfg: ModelConfig,
                 h = _layer(block, remat)(h, cfg, MAMBA)
         return h
     for block, w in zip(params.layers, cfg.layer_pattern):
-        h = _layer(block, remat)(h, cfg, w, True, enc_out)
+        h = shard_activation(_layer(block, remat)(h, cfg, w, True, enc_out))
     return h
 
 
@@ -295,9 +300,11 @@ def build_model(cfg: ModelConfig, device="cuda", remat: bool = True) -> ModelApi
         if cfg.num_patches and "patches" in batch:
             logits = logits[:, cfg.num_patches:]
         valid = targets >= 0
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
-        nll = (logz - tgt) * valid
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+        # gathered and subtracted with the trailing 1 kept: from vocab-sharded
+        # logits the gather is a pending masked sum, whose mask has its shape
+        tgt = logits.gather(-1, targets.clamp_min(0).unsqueeze(-1))
+        nll = (logz - tgt).squeeze(-1) * valid
         return nll.sum() / valid.sum().clamp_min(1)
 
     from repro_torch.models.decode import build_decode_fns  # late import (cycle)

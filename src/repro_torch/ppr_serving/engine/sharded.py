@@ -26,6 +26,7 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.fixed_point import QFormat
 from repro_torch.core.ppr import (
@@ -75,6 +76,7 @@ def partition_topology(rg) -> None:
     rg._host_x = sx.reshape(s, -1)
     rg._host_y = sy.reshape(s, -1)
     rg._host_val = sval.reshape(s, -1)
+    rg._sharded_quantized.clear()
     for fmt in tuple(rg._sharded_quant_host):
         _, _, sq = partition_edges_by_dst(
             rg.source.x, rg.source.y, rg._quantize_host(fmt),
@@ -90,9 +92,12 @@ def shard_operands(rg, fmt: Optional[QFormat] = None) -> List:
             for st, dev in zip(rg.shard_streams, rg.shard_devices)]
 
 
-def partition_format(rg, fmt: QFormat) -> None:
-    """Partition the raw uint32 host values of ``fmt`` (cached) and upload
-    each shard's raw int32 stream values to its device.
+def partition_format(rg, fmt: QFormat) -> torch.Tensor:
+    """Partition the raw uint32 host values of ``fmt`` (cached), upload each
+    shard's raw int32 stream values to its device, and return the raw edge
+    shard values in the partitioned layout, [S·max_e]: a host view, int32
+    holding the uint32 bits, copied nowhere (``ShardedRegisteredGraph.
+    sharded_quantized`` puts them on the controller when asked).
 
     A stream's raw values are ``quantize_values`` of its float32 values per
     edge, the function that filled the host buckets, so they are the bucket's
@@ -103,6 +108,8 @@ def partition_format(rg, fmt: QFormat) -> None:
             rg.num_vertices, rg.n_shards, packet=rg.packet)
         rg._sharded_quant_host[fmt] = sval.reshape(rg.n_shards, -1)
     shard_operands(rg, fmt)
+    raw = np.ascontiguousarray(rg._sharded_quant_host[fmt], np.uint32).reshape(-1)
+    return torch.from_numpy(raw.view(np.int32))
 
 
 def refresh_partition_after_delta(rg, info) -> None:
@@ -140,6 +147,7 @@ def refresh_partition_after_delta(rg, info) -> None:
         for fmt, hq in rg._sharded_quant_host.items():
             hq[s, :] = 0
             hq[s, :n] = rg._quantized_host[fmt][m]
+    rg._sharded_quantized.clear()
     t1 = time.perf_counter()
     _rebuild_streams(rg, [int(s) for s in affected])
     rg.last_refresh_shards = [int(s) for s in affected]

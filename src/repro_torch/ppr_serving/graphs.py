@@ -200,6 +200,7 @@ class ShardedRegisteredGraph(RegisteredGraph):
         self.mesh_key = f"mesh:{self.axis}x{self.n_shards}"
         self.shard_devices = mesh.axis_devices(self.axis)
         self._sharded_quant_host: Dict[QFormat, np.ndarray] = {}  # [S, max_e]
+        self._sharded_quantized: Dict[QFormat, torch.Tensor] = {}  # [S·max_e] raw int32
         self.shard_streams: List = []
         self._sharded_stale = False
         self._pre_delta_v_local = 0
@@ -208,6 +209,17 @@ class ShardedRegisteredGraph(RegisteredGraph):
         super().__init__(name, g, packet=packet, device=controller)
         from repro_torch.ppr_serving.engine.sharded import partition_topology
         partition_topology(self)
+
+    def sharded_quantized(self, fmt: QFormat) -> torch.Tensor:
+        """Raw edge shard values in the partitioned layout (cached until the
+        partition changes): int32 holding the reference's uint32 bits,
+        [S·max_e], on the controller.  Built on first call; no served path
+        reads it."""
+        from repro_torch.ppr_serving.engine.sharded import partition_format
+        if fmt not in self._sharded_quantized:
+            self._sharded_quantized[fmt] = partition_format(self, fmt).to(self.device,
+                                                                          copy=True)
+        return self._sharded_quantized[fmt]
 
     def apply_delta(self, delta) -> EdgeMergeInfo:
         """Host merge plus the bookkeeping the sharded engines' per-bucket

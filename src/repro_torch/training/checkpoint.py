@@ -13,8 +13,10 @@
 
 A tree is a tensor, an ``nn.Module`` (its ``named_parameters``), a
 NamedTuple, a dict or a list of trees, or ``None`` (no entry).
-``restore(..., device=)`` places the tensors on a device; a re-shard onto a
-mesh waits for the port's ``distributed/``.
+``restore(..., device=)`` places the tensors on a device;
+``restore(..., shardings=)`` lays each one out on a ``DeviceMesh`` instead:
+the elastic-rescale path, the stored full arrays re-sharded onto the
+*current* mesh.
 """
 from __future__ import annotations
 
@@ -102,30 +104,61 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Any, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, device=None, shardings: Any = None) -> Any:
     """Restore into the structure of ``like``: each tensor takes its stored
     values in ``like``'s dtype, on ``device`` (default: ``like``'s own).  A
     module's parameters keep their objects (``.data`` replaced); every other
-    tensor is new."""
+    tensor is new.
+
+    ``shardings`` (the elastic-rescale path) matches ``like``'s structure
+    (a module's entry is a dict by parameter name) with ``(mesh,
+    placements)`` pairs, or ``None`` where a tensor stays whole: each such
+    tensor becomes a DTensor on ``mesh``, every rank taking its own slice of
+    the stored array (all ranks read the same file, so nothing is sent), and
+    a module's parameter is replaced by a parameter holding it."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with np.load(os.path.join(path, "arrays.npz")) as data:
         arrays = {k: data[k] for k in data.files}
 
-    def load(key: str, leaf: torch.Tensor) -> torch.Tensor:
+    def load(key: str, leaf: torch.Tensor, shard=None) -> torch.Tensor:
+        if shard is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            mesh, placements = shard
+            dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+                if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+            full = torch.from_numpy(arrays[key]).to(device=dev, dtype=leaf.dtype)
+            return distribute_tensor(full, mesh, placements, src_data_rank=None)
         return torch.from_numpy(arrays[key]).to(
             device=leaf.device if device is None else device, dtype=leaf.dtype)
 
-    def rebuild(tree, prefix: str = ""):
+    def sub(shard, key):
+        """``shardings``' entry under ``key`` (a dict's key, a NamedTuple's
+        field, a list's index)."""
+        if shard is None:
+            return None
+        if isinstance(shard, dict):
+            return shard.get(key)
+        return getattr(shard, key) if isinstance(key, str) else shard[key]
+
+    def rebuild(tree, prefix: str = "", shard=None):
         if tree is None:
             return None
         if isinstance(tree, torch.Tensor):
-            return load(prefix, tree)
+            return load(prefix, tree, shard)
         if isinstance(tree, nn.Module):
             with torch.no_grad():
-                for name, p in tree.named_parameters():
-                    p.data = load(f"{prefix}/{name}" if prefix else name, p)
+                for name, p in list(tree.named_parameters()):
+                    key = f"{prefix}/{name}" if prefix else name
+                    s = sub(shard, name)
+                    if s is None:
+                        p.data = load(key, p)
+                        continue
+                    owner, _, leaf = name.rpartition(".")
+                    setattr(tree.get_submodule(owner), leaf,
+                            nn.Parameter(load(key, p, s), requires_grad=p.requires_grad))
             return tree
-        vals = [(k, rebuild(v, f"{prefix}/{k}" if prefix else str(k)))
+        vals = [(k, rebuild(v, f"{prefix}/{k}" if prefix else str(k), sub(shard, k)))
                 for k, v in _items(tree)]
         if isinstance(tree, tuple) and hasattr(tree, "_fields"):
             return type(tree)(*(v for _, v in vals))
@@ -133,7 +166,7 @@ def restore(ckpt_dir: str, step: int, like: Any, device=None) -> Any:
             return dict(vals)
         return type(tree)(v for _, v in vals)
 
-    return rebuild(like)
+    return rebuild(like, shard=shardings)
 
 
 def _gc(ckpt_dir: str, keep: int):

@@ -43,6 +43,34 @@ def init_train_state(params, compress: bool = False) -> TrainState:
     return TrainState(params=params, opt=init_opt_state(params), residual=res)
 
 
+def _rows(x: torch.Tensor, i: int, microbatches: int) -> torch.Tensor:
+    """Microbatch ``i``: rows [i·n, (i+1)·n).  A DTensor whose rows are
+    sharded gives each device the i-th part of its own rows instead, so that
+    no device gathers the batch.  The microbatches then group the rows
+    otherwise than the reference's; the step is the same wherever each
+    microbatch counts as many targets (every synthetic batch does), since
+    it averages the microbatches' mean losses.  Each device's rows must
+    split into ``microbatches`` equal parts: the batch must divide by the
+    microbatches times the devices that share its rows."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor) and any(p.is_shard(0) for p in x.placements):
+        shards = 1
+        for axis, p in enumerate(x.placements):
+            if p.is_shard(0):
+                shards *= x.device_mesh.size(axis)
+        if x.shape[0] % (microbatches * shards):
+            raise ValueError(
+                f"a batch of {x.shape[0]} rows sharded over {shards} devices does not "
+                f"split into {microbatches} equal microbatches on each device")
+        loc = x.to_local()
+        n = loc.shape[0] // microbatches
+        return DTensor.from_local(loc[i * n:(i + 1) * n], x.device_mesh, x.placements,
+                                  run_check=False)
+    n = x.shape[0] // microbatches
+    return x[i * n:(i + 1) * n]
+
+
 def _split(batch, microbatches: int):
     """The batch's leaves split along dim 0 into ``microbatches`` equal parts
     (the reference's reshape to [m, B/m, …]: B must divide)."""
@@ -50,8 +78,7 @@ def _split(batch, microbatches: int):
     if b % microbatches:
         raise ValueError(f"a batch of {b} does not split into {microbatches} "
                          f"equal microbatches")
-    n = b // microbatches
-    return [{k: x[i * n:(i + 1) * n] for k, x in batch.items()}
+    return [{k: _rows(x, i, microbatches) for k, x in batch.items()}
             for i in range(microbatches)]
 
 

@@ -974,3 +974,103 @@ def test_cuda_resume_equals_uninterrupted(cuda, tmp_path):
         ill = torch.sqrt(ref.opt.nu[n] / (1 - opt.b2 ** 6)) < 1e-6
         assert not (off & ~ill).any(), n
         assert (d[off] <= 2.5 * opt.lr * 6).all(), n
+
+
+# ---------------------------------------------------------------------------
+# the sharding hooks, the compressed all-reduce and restore(shardings=) on a
+# one-rank NCCL group (one card: a 1×1 mesh, every layout the same)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def nccl_mesh(cuda):
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield make_debug_mesh(1, 1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "mixtral-8x7b", "mamba2-1.3b"])
+def test_cuda_sharded_train_step_equals_unsharded(nccl_mesh, arch):
+    """Smoke size, float32: the loss, every gradient and the parameters after
+    one AdamW step with the parameters as DTensors under a sharding context
+    equal the unsharded step's on the card, bit for bit."""
+    import dataclasses
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.transformer import build_model
+    from repro_torch.training import AdamWConfig
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), compute_dtype="float32")
+    api = build_model(cfg, device="cuda", remat=True)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32))
+             .cuda() for k in ("tokens", "targets")}
+
+    def step(params, bt):
+        loss = api.loss_fn(params, bt)
+        loss.backward()
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        adamw_update(AdamWConfig(lr=1e-3, warmup_steps=1), grads, init_opt_state(params),
+                     params)
+        return loss.detach(), grads
+
+    def fresh():
+        return api.init_params(torch.Generator("cuda").manual_seed(0)).requires_grad_(True)
+
+    want_params = fresh()
+    want_loss, want_grads = step(want_params, batch)
+    params = shd.distribute_params(fresh(), nccl_mesh, cfg)
+    dbatch = {k: shd.distribute(v, nccl_mesh, ("data",)) for k, v in batch.items()}
+    shd.set_sharding_context(nccl_mesh)
+    try:
+        with implicit_replication():
+            loss, grads = step(params, dbatch)
+    finally:
+        shd.set_sharding_context(None)
+    assert torch.equal(loss.full_tensor(), want_loss)
+    for n, w in want_params.named_parameters():
+        assert torch.equal(grads[n].full_tensor(), want_grads[n]), n
+        assert torch.equal(params.get_parameter(n).full_tensor().detach(), w.detach()), n
+
+
+def test_cuda_compressed_psum_and_sharded_restore(nccl_mesh, tmp_path):
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.core.quantization import truncate_to_grid
+    from repro_torch.distributed.collectives import (
+        compressed_psum,
+        make_compressed_grad_allreduce,
+    )
+    from repro_torch.training import checkpoint
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    grads = {"a": torch.randn((64, 32), generator=gen, device="cuda") * 0.1,
+             "b": torch.randn((7,), generator=gen, device="cuda")}
+    res = {k: torch.randn(g.shape, generator=gen, device="cuda") * 2.0 ** -14
+           for k, g in grads.items()}
+    red, new = make_compressed_grad_allreduce(nccl_mesh, "data", 12)(grads, res)
+    for k, g in grads.items():
+        q = truncate_to_grid(g + res[k], 12)
+        assert torch.equal(red[k], q) and torch.equal(new[k], (g + res[k]) - q)
+        one = compressed_psum(g, res[k], "model", 12, mesh=nccl_mesh)
+        assert torch.equal(one[0], q) and torch.equal(one[1], new[k])
+    checkpoint.save(str(tmp_path), 1, grads)
+    like = {k: torch.zeros_like(g) for k, g in grads.items()}
+    got = checkpoint.restore(str(tmp_path), 1, like, shardings={
+        "a": (nccl_mesh, [Replicate(), Replicate()]), "b": None})
+    assert torch.equal(got["a"].full_tensor(), grads["a"]) and got["a"].device.type == "cuda"
+    assert torch.equal(got["b"], grads["b"])

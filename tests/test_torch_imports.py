@@ -50,7 +50,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.ppr_serving", "repro_torch.autotune", "repro_torch.obs",
             "repro_torch.ppr_serving.http", "repro_torch.launch.mesh",
             "repro_torch.configs.ppr_paper", "repro_torch.data", "repro_torch.training",
-            "repro_torch.launch.train", "repro_torch.models.transformer"]
+            "repro_torch.launch.train", "repro_torch.models.transformer",
+            "repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives", "repro_torch.roofline",
+            "repro_torch.roofline.structured", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline_run",
+            "repro_torch.launch.ppr_dryrun"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m == 'repro' or m.startswith('repro.'))\n"
