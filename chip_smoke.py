@@ -178,7 +178,20 @@ exits non-zero.  It prints, in order:
    within [1.0, 1.5] × 6·N·T); (c) ``launch.ppr_dryrun --workload
    ppr-pod-16m`` and ``launch.dryrun --arch gemma-2b --shape decode_32k
    --mesh single`` as subprocesses, exit 0 and the reference's JSON keys;
-14. a ``{"kernels": [...]}`` JSON line, then the card line, then the
+14. the examples on the card, after phase 13, in at most 90 s: the five
+   scripts of ``examples_torch/`` as subprocesses with ``--device cuda``
+   (the three PPR ones in turn, ``serve_lm.py`` and ``train_lm.py --steps
+   60`` beside them), and ``quickstart.py``,
+   ``ppr_recommender.py`` and ``http_serving.py`` with ``--device cpu``
+   beside them: each exits 0; the card's PPR lines equal the CPU's with the
+   clocks masked; the HTTP tier's ordinary traffic equals the CPU's and its
+   burst answers all 32, sheds and recovers (the burst's split and the
+   audit, which depend on how fast a wave drains the queue, printed beside
+   the CPU's); serve_lm's 10 requests give 60 tokens; train_lm's last loss
+   is below its first and no checkpoint is written; ``[examples]`` lines
+   with each run's wall seconds.  They launch none of the four kernels
+   (the examples' "single" family and eager models);
+15. a ``{"kernels": [...]}`` JSON line, then the card line, then the
    ``{"ok": true, ...}`` line last.
 
 Everything too long for the end of the output goes to
@@ -4539,6 +4552,168 @@ def sharding_phase(torch, np, dev, card, measured):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the examples on the card
+# ---------------------------------------------------------------------------
+PHASE14_BUDGET_S = 90
+EXAMPLE_TRAIN_STEPS = 60
+# the clocks in the examples' lines (as tests/test_torch_examples.py masks them)
+EXAMPLE_CLOCKS = (
+    (r"http://127\.0\.0\.1:\d+", "http://127.0.0.1:<port>"),
+    (r"t=\d+\.\d+s", "t=<s>"),
+    (r" +\d+(?:\.\d+)? ms\b", " <ms> ms"),
+    (r"\(\d+ queries/s", "(<r> queries/s"),
+)
+
+
+def _start_example(name, device, threads=None, args=()):
+    """Start ``examples_torch/<name> --device <device>``; a thread waits for
+    it (at most 300 s) and stamps its end, so runs side by side each get
+    their own wall time."""
+    import os
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    if threads is not None:
+        env["OMP_NUM_THREADS"] = str(threads)
+    run = dict(t0=time.perf_counter(), proc=subprocess.Popen(
+        [sys.executable, str(ROOT / "examples_torch" / name), "--device", device, *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(ROOT), env=env))
+
+    def wait():
+        try:
+            run["stdout"], run["stderr"] = run["proc"].communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            run["proc"].kill()
+            run["stdout"], run["stderr"] = run["proc"].communicate()
+        run["t1"] = time.perf_counter()
+
+    run["waiter"] = threading.Thread(target=wait, daemon=True)
+    run["waiter"].start()
+    return run
+
+
+def _example_out(run, name, device):
+    """Wait for an example started by ``_start_example``: exit 0, its stdout
+    and its wall seconds."""
+    run["waiter"].join()
+    if run["proc"].returncode != 0:
+        _fail(f"examples_torch/{name} --device {device} exited {run['proc'].returncode}:\n"
+              f"{run['stdout'][-2000:]}\n{run['stderr'][-4000:]}")
+    return dict(wall_s=run["t1"] - run["t0"], stdout=run["stdout"])
+
+
+def _masked_lines(stdout):
+    import re
+
+    lines = stdout.splitlines()
+    for pattern, repl in EXAMPLE_CLOCKS:
+        lines = [re.sub(pattern, repl, line) for line in lines]
+    return lines
+
+
+def _http_burst(lines):
+    """The ordinary traffic's lines, the burst's served / shed counts, the
+    audit's values and the timeline's event names."""
+    import re
+
+    i = next(i for i, line in enumerate(lines) if line.startswith("burst of 32:"))
+    served, shed = map(int, re.search(r"(\d+) served .*?(\d+) shed", lines[i]).groups())
+    stats = [line.split() for line in lines[i + 2:i + 13]]
+    events = [m.group(1) for m in (re.match(r" +t=<s> (\w+)", line) for line in lines) if m]
+    return lines[:i], served, shed, stats, events
+
+
+def examples_phase(card):
+    """Phase 14: the five scripts of ``examples_torch/`` as subprocesses on
+    the card (the PPR ones one after another, the two LM ones beside them);
+    ``quickstart.py``, ``ppr_recommender.py`` and ``http_serving.py`` also
+    with ``--device cpu`` (started first, on two threads each, beside the
+    card's runs).  The card's PPR lines equal the
+    CPU's with the clocks masked (every answer is Q1.25 or Q1.19 raw-exact,
+    the shadow NDCG printed to 4 decimals); the HTTP tier's ordinary traffic
+    equals the CPU's, and its burst answers all 32 and sheds, then recovers;
+    ``serve_lm.py`` serves 10 requests and 60 tokens; ``train_lm.py --steps
+    60`` (warm-up 30) ends below its first loss and writes no checkpoint
+    (save_every 100)."""
+    import re
+    import shutil
+    import tempfile
+
+    ckpt = Path(tempfile.gettempdir()) / "repro_torch_example_train"
+    shutil.rmtree(ckpt, ignore_errors=True)   # a stale checkpoint would resume past --steps
+    t0 = time.perf_counter()
+    on_cpu = {name: _start_example(name, "cpu", threads=2)
+              for name in ("quickstart.py", "ppr_recommender.py", "http_serving.py")}
+    # the two LM scripts keep the card busy and the PPR scripts the host:
+    # the LM ones run beside the PPR ones, which run one after another
+    lm = {"serve_lm.py": _start_example("serve_lm.py", "cuda"),
+          "train_lm.py": _start_example("train_lm.py", "cuda",
+                                        args=("--steps", str(EXAMPLE_TRAIN_STEPS)))}
+    out = {}
+    for name in ("quickstart.py", "ppr_recommender.py", "http_serving.py"):
+        out[name] = dict(card=_example_out(_start_example(name, "cuda"), name, "cuda"))
+    for name, started in lm.items():
+        out[name] = dict(card=_example_out(started, name, "cuda"))
+    for name, started in on_cpu.items():
+        out[name]["cpu"] = _example_out(started, name, "cpu")
+    for name in ("quickstart.py", "ppr_recommender.py"):
+        gpu, cpu = (_masked_lines(out[name][d]["stdout"]) for d in ("card", "cpu"))
+        if gpu != cpu:
+            diff = [(g, c) for g, c in zip(gpu, cpu) if g != c][:5]
+            _fail(f"examples_torch/{name}: the card's lines differ from the CPU's: {diff} "
+                  f"({len(gpu)} / {len(cpu)} lines)")
+        out[name]["equal_to_cpu"] = True
+    gpu, cpu = (_http_burst(_masked_lines(out["http_serving.py"][d]["stdout"]))
+                for d in ("card", "cpu"))
+    if gpu[0] != cpu[0]:
+        _fail(f"examples_torch/http_serving.py: the ordinary traffic differs: {gpu[0]} / {cpu[0]}")
+    for where, (_, served, shed, _, events) in (("card", gpu), ("cpu", cpu)):
+        if served + shed != 32 or shed == 0:
+            _fail(f"http_serving.py on the {where}: burst {served} served + {shed} shed")
+        if not events.index("shed_engaged") < events.index("shed_recovered"):
+            _fail(f"http_serving.py on the {where}: timeline {events}")
+    out["http_serving.py"].update(
+        burst_card=gpu[1:3], burst_cpu=cpu[1:3], events_card=gpu[4], events_cpu=cpu[4],
+        audit_equal_to_cpu=gpu[1:] == cpu[1:])
+    served = re.search(r"MoE serving: (\d+) requests → (\d+) tokens in ([\d.]+)s",
+                       out["serve_lm.py"]["card"]["stdout"])
+    if not served or (int(served.group(1)), int(served.group(2))) != (10, 60):
+        _fail(f"serve_lm.py: {out['serve_lm.py']['card']['stdout'][-500:]}")
+    ran = re.search(r"ran (\d+) steps; loss ([\d.]+) → ([\d.]+)",
+                    out["train_lm.py"]["card"]["stdout"])
+    if not ran or int(ran.group(1)) != EXAMPLE_TRAIN_STEPS \
+            or not float(ran.group(3)) < float(ran.group(2)):
+        _fail(f"train_lm.py: {out['train_lm.py']['card']['stdout'][-800:]}")
+    if ckpt.exists() and any(ckpt.iterdir()):
+        _fail(f"train_lm.py --steps {EXAMPLE_TRAIN_STEPS} wrote a checkpoint: "
+              f"{sorted(p.name for p in ckpt.iterdir())}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out["train_lm.py"].update(first_loss=float(ran.group(2)), last_loss=float(ran.group(3)))
+    out["wall_s"] = time.perf_counter() - t0
+    for name, r in out.items():
+        if name == "wall_s":
+            continue
+        walls = ", ".join(f"{d} {r[d]['wall_s']:.1f} s" for d in ("card", "cpu") if d in r)
+        note = ""
+        if "equal_to_cpu" in r:
+            note = "; lines equal to the CPU's (clocks masked)"
+        elif name == "http_serving.py":
+            note = (f"; ordinary traffic equal to the CPU's; burst served/shed card "
+                    f"{r['burst_card'][0]}/{r['burst_card'][1]}, cpu {r['burst_cpu'][0]}/"
+                    f"{r['burst_cpu'][1]}; audit and event order "
+                    f"{'equal' if r['audit_equal_to_cpu'] else 'differ'} "
+                    f"(card {r['events_card']}, cpu {r['events_cpu']})")
+        elif name == "serve_lm.py":
+            note = f"; 10 requests, 60 tokens in {served.group(3)} s"
+        elif name == "train_lm.py":
+            note = (f"; {EXAMPLE_TRAIN_STEPS} steps, loss {r['first_loss']:.3f} -> "
+                    f"{r['last_loss']:.3f}, no checkpoint")
+        print(f"[examples] {name}: {walls}{note} ({card})")
+    print(f"[examples] phase 14 took {out['wall_s']:.1f} s of its {PHASE14_BUDGET_S} s budget")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     try:
         import torch
@@ -4614,6 +4789,7 @@ def main() -> int:
     sharding = sharding_phase(torch, np, dev, card, measured={
         "train_step_ms_p50": encdec_train["full_width"]["gemma-2b"]["step_ms_p50"],
         "decode_step_ms_p50": lm["serving_shape"]["decode_step_ms_p50"]})
+    examples = examples_phase(card)
 
     print("[times] kernel graph domain: ms plain_ms bound_ms library_ms "
           "function_bound_ms bound_share | device_ms device_bound_share "
@@ -4727,7 +4903,7 @@ def main() -> int:
             k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
             for k, v in encdec_train["full_width"].items()}),
         train_stdout={k: v["stdout"] for k, v in encdec_train["full_width"].items()},
-        sharding=sharding, kernels=kernels), indent=1))
+        sharding=sharding, examples=examples, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

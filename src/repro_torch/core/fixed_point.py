@@ -31,6 +31,7 @@ Raw = Union[torch.Tensor, int]
 def wrap_u32(x: torch.Tensor) -> torch.Tensor:
     """int64 → int32 holding the low 32 bits (value mod 2^32 as uint32 bits)."""
     x = x.to(torch.int64) & _MASK32
+    # repro: allow[FXP002] 1 << 32 is a Python int in int64 arithmetic on x; no uint32 lane is involved
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 

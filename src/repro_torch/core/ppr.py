@@ -110,6 +110,7 @@ def _fixed_iteration(x, y, val_raw, d_raw, Vmat, P, *, fmt: QFormat,
 # ----------------------------------------------------------------------------
 # step API — one eq. (1) iteration per call, for external drivers
 # ----------------------------------------------------------------------------
+# repro: hot-path
 def ppr_step_float(x, y, val, dangling, Vmat, P, *, num_vertices: int,
                    alpha: float) -> torch.Tensor:
     """P_{t+1} from P_t, float32.  ``Vmat`` is the one-hot personalization matrix."""
@@ -122,6 +123,7 @@ def make_ppr_fixed_step(fmt: QFormat, num_vertices: int, alpha: float):
     """Bit-exact single iteration in the raw domain of ``fmt``."""
     a_raw, oma_raw, aov_raw = _fixed_consts(fmt, num_vertices, alpha)
 
+    # repro: hot-path
     def step(x, y, val_raw, dangling, Vmat, P) -> torch.Tensor:
         return _fixed_iteration(
             x, y, val_raw, dangling, Vmat, P,
@@ -147,6 +149,7 @@ def make_ppr_sharded_float_step(mesh, axis: str, num_vertices: int, alpha: float
     """
     spmv = make_sharded_spmv(mesh, axis, num_vertices)
 
+    # repro: hot-path
     def step(shards, dangling, Vmat, P) -> torch.Tensor:
         dangling_mass = dangling.to(torch.float32) @ P
         xp = spmv(shards, P)
@@ -167,6 +170,7 @@ def make_ppr_sharded_fixed_step(fmt: QFormat, mesh, axis: str,
     a_raw, oma_raw, aov_raw = _fixed_consts(fmt, num_vertices, alpha)
     spmv = make_sharded_spmv_fixed(mesh, axis, num_vertices, fmt)
 
+    # repro: hot-path
     def step(shards, dangling, Vmat, P) -> torch.Tensor:
         dangling_mass = _fixed_dangling_mass(dangling, P)
         xp = spmv(shards, P)
@@ -179,6 +183,7 @@ def make_ppr_sharded_fixed_step(fmt: QFormat, mesh, axis: str,
 # ----------------------------------------------------------------------------
 # loop drivers
 # ----------------------------------------------------------------------------
+# repro: hot-path
 def ppr_float(x, y, val, dangling, pers, *, num_vertices: int, iterations: int,
               alpha: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (P [V,K] float32, deltas [iterations] convergence trace)."""
@@ -198,6 +203,7 @@ def make_ppr_fixed(fmt: QFormat, num_vertices: int, iterations: int, alpha: floa
     """Bit-exact fixed-point PPR for one Q format."""
     a_raw, oma_raw, aov_raw = _fixed_consts(fmt, num_vertices, alpha)
 
+    # repro: hot-path
     def run(x, y, val_raw, dangling, pers):
         Vmat = personalization_matrix_fixed(num_vertices, pers, fmt)
         P, deltas = Vmat, []

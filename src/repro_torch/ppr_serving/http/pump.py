@@ -80,8 +80,7 @@ class WavePump:
     async def _drive(self, fn) -> int:
         """Run one service-driving call (poll/flush) off the loop thread."""
         if self._executor is None:
-            # offload=False is the explicit single-threaded debug mode:
-            # blocking the loop is opted into
+            # repro: allow[ASY303] offload=False is the explicit single-threaded debug mode; blocking is opted into
             return fn()
         return await asyncio.get_running_loop().run_in_executor(
             self._executor, fn)

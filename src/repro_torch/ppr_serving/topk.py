@@ -61,6 +61,7 @@ def _finish(P: Tensor, idx: Tensor, keys: Tensor, exclude, k: int):
     return _drop_excluded(idx, vals, torch.as_tensor(exclude, device=P.device), k)
 
 
+# repro: hot-path
 def topk_dense(P: Tensor, k: int, exclude: Optional[Tensor] = None
                ) -> Tuple[Tensor, Tensor]:
     """(vertices [κ, k] int32, scores [κ, k] in P's dtype) of the k highest
@@ -75,6 +76,7 @@ def topk_dense(P: Tensor, k: int, exclude: Optional[Tensor] = None
     return _finish(P, idx, keys, exclude, k)
 
 
+# repro: hot-path
 def topk_streaming(P: Tensor, k: int, v_tile: int = 1024,
                    exclude: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Streaming merge over vertex tiles; == ``topk_dense`` bit-for-bit.

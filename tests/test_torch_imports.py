@@ -1,5 +1,6 @@
-"""The port stands alone: no module under ``src/repro_torch/`` imports JAX or
-the reference package ``repro``, and importing the port loads neither."""
+"""The port stands alone: no module under ``src/repro_torch/`` and no script
+under ``examples_torch/`` imports JAX or the reference package ``repro``, and
+importing the port loads neither."""
 import ast
 import os
 import subprocess
@@ -10,6 +11,7 @@ import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT_MODULES = sorted((SRC / "repro_torch").rglob("*.py"))
+EXAMPLES = sorted((SRC.parent / "examples_torch").glob("*.py"))
 FORBIDDEN = ("jax", "repro")
 
 
@@ -36,6 +38,12 @@ def test_port_module_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.relative_to(SRC)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", EXAMPLES, ids=[p.name for p in EXAMPLES])
+def test_port_example_imports_no_jax_and_no_reference(path):
+    bad = _forbidden_imports(path)
+    assert not bad, f"examples_torch/{path.name} imports {bad}"
+
+
 def test_chip_smoke_imports_no_jax_and_no_reference():
     bad = _forbidden_imports(SRC.parent / "chip_smoke.py")
     assert not bad, f"chip_smoke.py imports {bad}"
@@ -55,7 +63,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.distributed.collectives", "repro_torch.roofline",
             "repro_torch.roofline.structured", "repro_torch.launch.specs",
             "repro_torch.launch.dryrun", "repro_torch.launch.roofline_run",
-            "repro_torch.launch.ppr_dryrun"]
+            "repro_torch.launch.ppr_dryrun", "repro_torch.analysis",
+            "repro_torch.analysis.cli"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m == 'repro' or m.startswith('repro.'))\n"
