@@ -24,15 +24,31 @@ traces with a fake clock and assert whole span trees deterministically.
 The tracer itself holds no history — completed traces go to a sink (the
 flight recorder); a tracing-off service simply has no tracer and pays only
 an ``is None`` check per instrumentation point.
+
+Beside the trees, a ``Timeline`` records flat host spans of the serving
+path (``TIMELINE_SPANS``: submit, admission, each wave's stages, each fused
+step) for whole-window profiling, where the
+trees' dicts and 256-trace ring would cost too much and their injected
+clock must not be read.  Its clock is ``time.perf_counter_ns``, the host
+clock a device trace can be tied to (a marker kernel launched at a known
+perf-counter instant), so device operations can be attributed to the span
+that launched them.  One process-wide slot, ``armed``, holds the timeline
+being recorded: the engine layer has no handle on the service, and the
+caller that profiles arms and disarms it (``arm_timeline`` /
+``disarm_timeline``).  Off, each instrumentation point pays one ``is
+None`` check.
 """
 from __future__ import annotations
 
+import array
 import dataclasses
 import itertools
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["Span", "Trace", "Tracer", "fanout_sink"]
+__all__ = ["Span", "Trace", "Tracer", "fanout_sink", "TIMELINE_SPANS",
+           "Timeline", "span_id", "arm_timeline", "disarm_timeline"]
 
 
 def fanout_sink(*sinks: Callable[["Trace"], None]
@@ -143,3 +159,140 @@ class Tracer:
         if self.sink is not None:
             self.sink(trace)
         return trace
+
+
+# ---------------------------------------------------------------------------
+# the flat span timeline
+# ---------------------------------------------------------------------------
+#: every span a ``Timeline`` records; a record holds the name's index here
+TIMELINE_SPANS = (
+    "ppr.submit",              # PPRService.submit, the whole call
+    "ppr.admit",               # the scheduler's ready_waves/drain/flush_keys
+    "ppr.wave",                # _run_wave, the whole call (with its wave id)
+    "ppr.wave.plan",           # engine.plan + plan.initial
+    "ppr.wave.iterate",        # plan.iterate: the host's enqueue of the steps
+    "ppr.step",                # one fused_ppr_iteration call
+    "ppr.wave.topk",           # plan.topk's enqueue
+    "ppr.wave.device_wait",    # the top-K results' copies to the host
+    "ppr.wave.resolve",        # recommendations, cache puts, telemetry
+    "ppr.wave.callbacks",      # the futures' resolution (callers' callbacks)
+)
+_SPAN_IDS = {name: i for i, name in enumerate(TIMELINE_SPANS)}
+
+
+def span_id(name: str) -> int:
+    """The record id of ``name``; an unknown name raises (resolve ids once,
+    where the module imports, so a typo fails there)."""
+    if name not in _SPAN_IDS:
+        raise ValueError(f"unknown timeline span {name!r} (have {TIMELINE_SPANS})")
+    return _SPAN_IDS[name]
+
+
+class Timeline:
+    """A bounded record of host spans, one row per span in preallocated
+    columns: name id, start and end (``time.perf_counter_ns``), wave id (0
+    where the recording code knows of no wave: a fused step's wave is its
+    parent's) and thread id.
+
+    A span is recorded at its end, its start read at its start: no object,
+    no dict and no lock per span (a slot is claimed with one ``next`` on a
+    counter, which the interpreter lock makes atomic, so the HTTP pump's
+    worker and the event loop record side by side).  Full, it records
+    nothing more and counts what it dropped.  A record's parent, found when
+    the records are read, is the innermost span of the same thread that
+    contains it.  Read it once recording has stopped (``disarm_timeline``):
+    ``n`` and ``dropped`` peek at the counter."""
+
+    def __init__(self, capacity: int):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self.name = array.array("h", bytes(2 * self.capacity))
+        self.start = array.array("q", bytes(8 * self.capacity))
+        self.end = array.array("q", bytes(8 * self.capacity))
+        self.wave = array.array("q", bytes(8 * self.capacity))
+        self.thread = array.array("Q", bytes(8 * self.capacity))
+        self._slots = itertools.count()
+
+    def record(self, name: int, start_ns: int, end_ns: int, wave: int = 0) -> None:
+        """One finished span (``name`` from ``span_id``)."""
+        i = next(self._slots)
+        if i < self.capacity:
+            self.name[i] = name
+            self.start[i] = start_ns
+            self.end[i] = end_ns
+            self.wave[i] = wave
+            self.thread[i] = threading.get_ident()
+
+    def _claimed(self) -> int:
+        claimed = next(self._slots)
+        self._slots = itertools.count(claimed)
+        return claimed
+
+    @property
+    def n(self) -> int:
+        """Records held."""
+        return min(self._claimed(), self.capacity)
+
+    @property
+    def dropped(self) -> int:
+        """Spans that found the timeline full."""
+        return max(0, self._claimed() - self.capacity)
+
+    def parents(self) -> List[int]:
+        """Each record's parent: the index of the innermost record of its
+        thread whose interval contains it, or -1."""
+        n = self.n
+        order = sorted(range(n), key=lambda i: (self.thread[i], self.start[i],
+                                                -self.end[i], -i))
+        parent = [-1] * n
+        stack: List[int] = []
+        thread = None
+        for i in order:
+            if self.thread[i] != thread:
+                thread, stack = self.thread[i], []
+            end = self.end[i]
+            while stack and self.end[stack[-1]] < end:
+                stack.pop()
+            if stack:
+                parent[i] = stack[-1]
+            stack.append(i)
+        return parent
+
+    def stats(self) -> Dict[str, Dict[str, float]]:
+        """Per span name: ``count``, ``total_s`` and ``self_s`` (durations
+        less the direct children's)."""
+        parents = self.parents()
+        n = len(parents)
+        child_ns = [0] * n
+        for i, p in enumerate(parents):
+            if p >= 0:
+                child_ns[p] += self.end[i] - self.start[i]
+        out: Dict[str, Dict[str, float]] = {}
+        for i in range(n):
+            s = out.setdefault(TIMELINE_SPANS[self.name[i]],
+                               {"count": 0, "total_s": 0.0, "self_s": 0.0})
+            d = self.end[i] - self.start[i]
+            s["count"] += 1
+            s["total_s"] += d / 1e9
+            s["self_s"] += (d - child_ns[i]) / 1e9
+        return out
+
+
+#: the timeline being recorded, or None (read once per instrumentation point)
+armed: Optional[Timeline] = None
+
+
+def arm_timeline(capacity: int) -> Timeline:
+    """Arm a new timeline of ``capacity`` records in the process-wide slot
+    and return it."""
+    global armed
+    armed = Timeline(capacity)
+    return armed
+
+
+def disarm_timeline() -> Optional[Timeline]:
+    """Empty the slot; returns the timeline that was armed (None if none)."""
+    global armed
+    tl, armed = armed, None
+    return tl

@@ -42,12 +42,15 @@ from repro_torch.core.fixed_point import QFormat
 from repro_torch.core.ppr import personalization_matrix, personalization_matrix_fixed
 from repro_torch.kernels.dst_stream import DstStream, build_dst_stream
 from repro_torch.kernels.fused_ppr import build_fused_layout, fused_ppr_iteration
+from repro_torch.obs import trace as _trace
 from repro_torch.ppr_serving.engine.base import WaveEngine, WavePlan, register_engine
 from repro_torch.ppr_serving.graphs import RegisteredGraph
 
 __all__ = ["FusedRegisteredGraph", "FusedFloatEngine", "FusedFixedEngine"]
 
 DEFAULT_V_TILE = 512
+
+_STEP = _trace.span_id("ppr.step")
 
 
 class FusedRegisteredGraph(RegisteredGraph):
@@ -169,8 +172,12 @@ def _bind_fused_step(rg: FusedRegisteredGraph, fmt: Optional[QFormat],
     val = rg.fused_values(fmt)
 
     def step(Vmat, P):
+        tl = _trace.armed
+        t0 = time.perf_counter_ns() if tl is not None else 0
         P_next, res = fused_ppr_iteration(topo, val, dang_idx, Vmat, P, alpha=alpha,
                                           fmt=fmt)
+        if tl is not None:
+            tl.record(_STEP, t0, time.perf_counter_ns())
         cell["res"] = res
         return P_next
 

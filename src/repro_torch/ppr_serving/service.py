@@ -62,6 +62,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graph_updates.delta import EdgeDelta
 from repro_torch.graph_updates.warmstart import WarmStartStore
 from repro_torch.obs import FlightRecorder, Tracer, fanout_sink
+from repro_torch.obs import trace as _trace
 from repro_torch.obs.otlp import OTLPExporter
 from repro_torch.obs.slo import SLOMonitor, SLOSpec, default_slo_specs
 from repro_torch.ppr_serving.cache import LRUCache
@@ -76,6 +77,28 @@ Precision = Union[None, int, str, QFormat]
 
 FLOAT_KEY = "f32"
 AUTO_KEY = "auto"
+
+# timeline spans (``repro_torch.obs.trace.Timeline``), timed on their own
+# perf-counter reads: never through ``time_fn``
+_ns = time.perf_counter_ns
+(_SUBMIT, _ADMIT, _WAVE, _PLAN, _ITERATE, _TOPK, _DEVICE_WAIT, _RESOLVE,
+ _CALLBACKS) = (
+    _trace.span_id(n) for n in (
+        "ppr.submit", "ppr.admit", "ppr.wave", "ppr.wave.plan", "ppr.wave.iterate",
+        "ppr.wave.topk", "ppr.wave.device_wait", "ppr.wave.resolve",
+        "ppr.wave.callbacks"))
+
+
+def _admit(pop, *args, **kwargs):
+    """The scheduler's ``pop(*args, **kwargs)``, timed as ``ppr.admit`` when
+    a timeline is armed."""
+    tl = _trace.armed
+    if tl is None:
+        return pop(*args, **kwargs)
+    t0 = _ns()
+    popped = pop(*args, **kwargs)
+    tl.record(_ADMIT, t0, _ns())
+    return popped
 
 
 def normalize_precision(precision: Precision) -> Optional[QFormat]:
@@ -550,6 +573,8 @@ class PPRService:
         the future for the next wave on its (graph, precision, mesh, epoch)
         stream.  Validation happens here and raises synchronously: one bad
         query must never poison a wave."""
+        tl = _trace.armed
+        t_sub = _ns() if tl is not None else 0
         if q.graph not in self._graphs:
             raise KeyError(f"graph {q.graph!r} is not registered "
                            f"(have {list(self._graphs)})")
@@ -598,6 +623,8 @@ class PPRService:
                     tracer.finish(tr, outcome="resolved", source="cache",
                                   precision=pkey)
                     fut._trace = None
+                if tl is not None:
+                    tl.record(_SUBMIT, t_sub, _ns())
                 return fut
             key = (q.graph, pkey, rg.mesh_key, rg.epoch)
             fut._wave_key = key
@@ -605,6 +632,8 @@ class PPRService:
             self.scheduler.submit(key, fut, deadline=q.deadline, now=now)
             self.telemetry.record_queue_depth(self.scheduler.queue_depth(),
                                               self.scheduler.oldest_wait_s(now))
+            if tl is not None:
+                tl.record(_SUBMIT, t_sub, _ns())
             return fut
 
     def poll(self, now: Optional[float] = None) -> int:
@@ -628,7 +657,7 @@ class PPRService:
         """Launch everything pending regardless of occupancy; every pending
         future resolves.  Returns the number of waves launched."""
         with self._lock:
-            popped = self.scheduler.drain()
+            popped = _admit(self.scheduler.drain)
         for wave in popped:
             self._run_wave(wave)
         return len(popped)
@@ -642,13 +671,13 @@ class PPRService:
         key = fut._wave_key
         if key is not None:
             with self._lock:
-                popped = self.scheduler.flush_keys({key})
+                popped = _admit(self.scheduler.flush_keys, {key})
             for wave in popped:
                 self._run_wave(wave)
 
     def _launch_ready(self, now: Optional[float], allow_prefetch: bool) -> int:
         with self._lock:
-            popped = self.scheduler.ready_waves(now=now)
+            popped = _admit(self.scheduler.ready_waves, now=now)
         for wave in popped:
             self._run_wave(wave)
         waves = len(popped)
@@ -709,7 +738,7 @@ class PPRService:
                 return 0
             self.prefetcher.issued += issued
             self.telemetry.record_prefetch(issued)
-            popped = self.scheduler.flush_keys(keys)
+            popped = _admit(self.scheduler.flush_keys, keys)
         for wave in popped:
             self._run_wave(wave)
         return len(popped)
@@ -777,6 +806,8 @@ class PPRService:
 
     # ------------------------------------------------------------------
     def _run_wave(self, wave: Wave) -> List[Recommendation]:
+        tl = _trace.armed
+        t_wave = _ns() if tl is not None else 0
         graph_name, pkey, mesh_key, epoch = wave.key
         rg = self._graphs[graph_name]
         fmt = None if pkey == FLOAT_KEY else normalize_precision(pkey)
@@ -831,6 +862,7 @@ class PPRService:
 
         # the graph's engine family decides how its waves iterate; arming
         # keeps late-bound engines in the delta device-refresh loop
+        t_span = _ns() if tl is not None else 0
         engine = engine_for(rg.engine_family, fmt is not None)
         rg.arm(engine)
         plan = engine.plan(rg, fmt, alpha=self.alpha,
@@ -846,13 +878,18 @@ class PPRService:
         pers = torch.as_tensor(np.asarray(padded, np.int32), device=rg.device)
 
         Vmat = plan.initial(pers)
+        if tl is not None:
+            tl.record(_PLAN, t_span, _ns(), wave_id)
         t_plan = self.time_fn()
         self.telemetry.record_stage("plan", t_plan - t0)
         P0, warm_cols = (self._warm_seed(rg, wave, pkey, Vmat)
                          if self._warm is not None else (Vmat, 0))
         t_warm = self.time_fn()
         self.telemetry.record_stage("warm_start", t_warm - t_plan)
+        t_span = _ns() if tl is not None else 0
         P, iters_run = plan.iterate(lambda P_: plan.step(Vmat, P_), P0)
+        if tl is not None:
+            tl.record(_ITERATE, t_span, _ns(), wave_id)
         if iters_run < self.iterations:
             self.telemetry.record_early_exit(self.iterations - iters_run)
         self.telemetry.record_wave_iterations(iters_run)
@@ -874,9 +911,15 @@ class PPRService:
         self.telemetry.record_stage("iterate", t_iter - t_warm)
 
         k_max = max(q.k for q in queries)
+        t_span = _ns() if tl is not None else 0
         idx, vals = plan.topk(P, k_max, pers)
+        if tl is not None:
+            t_copy = _ns()
+            tl.record(_TOPK, t_span, t_copy, wave_id)
         idx = idx.cpu().numpy()                     # [κ, k_max]
         vals = vals.cpu().numpy()
+        if tl is not None:
+            tl.record(_DEVICE_WAIT, t_copy, _ns(), wave_id)
         scores = (vals.view(np.uint32).astype(np.float64) / plan.scale
                   if plan.fixed else vals.astype(np.float64))
         t_topk = self.time_fn()
@@ -884,6 +927,7 @@ class PPRService:
         latency = t_topk - t0
 
         recs = []
+        t_span = _ns() if tl is not None else 0
         with self._lock:
             for col, fut in enumerate(wave.items):
                 q = fut.query
@@ -908,6 +952,8 @@ class PPRService:
             self.telemetry.record_wave(len(wave.items), self.kappa, latency,
                                        pkey, mesh_key=mesh_key,
                                        engine=plan.engine, graph=graph_name)
+        if tl is not None:
+            tl.record(_RESOLVE, t_span, _ns(), wave_id)
         self._shadow_feedback(wave, rg, fmt, pkey, P)
         if wtr is not None:
             wtr.span("plan", t0).end(t_plan, engine=plan.engine)
@@ -919,6 +965,7 @@ class PPRService:
             tracer.finish(wtr, latency_s=latency, engine=plan.engine)
         # resolve futures last: a waiter must observe the wave's completed
         # accounting (counters, traces, cache fills, shadow feedback)
+        t_span = _ns() if tl is not None else 0
         for col, fut in enumerate(wave.items):
             fut._resolve(recs[col])
             if tracer is not None and fut._trace is not None:
@@ -933,6 +980,10 @@ class PPRService:
                               precision=pkey,
                               wave_trace=wtr.trace_id if wtr else None)
                 fut._trace = None
+        if tl is not None:
+            t_end = _ns()
+            tl.record(_CALLBACKS, t_span, t_end, wave_id)
+            tl.record(_WAVE, t_wave, t_end, wave_id)
         return recs
 
     # ------------------------------------------------------------------
