@@ -605,26 +605,25 @@ def _serve(torch, svc_cls, query_cls, g, engine, queries, dev, passes):
     return recs, times, warm_waves + int(summary["waves"]), summary, run
 
 
-def _host_ms_per_iteration(run):
-    """Host milliseconds a served ``fused_ppr_iteration`` call takes (Python,
-    operand checks, allocations, ctypes, two launches; no synchronise), over
-    one pass of ``run``."""
-    from repro_torch.ppr_serving.engine import fused as fused_engine
+def _replay_host_ms(run):
+    """``run()``'s result, the host ms of each replayed fixed-budget wave
+    (span ``ppr.wave.replay``: the copies into the captured chain's inputs,
+    the graph launch and the output's clone; no synchronize) and of each
+    eager ``fused_ppr_iteration`` call (span ``ppr.step``) over the call,
+    from the port's span timeline."""
+    from repro_torch.obs import trace
 
-    kernel, spent = fused_engine.fused_ppr_iteration, []
-
-    def timed(*a, **kw):
-        t0 = time.perf_counter()
-        out = kernel(*a, **kw)
-        spent.append(time.perf_counter() - t0)
-        return out
-
-    fused_engine.fused_ppr_iteration = timed
+    tl = trace.arm_timeline(1 << 16)
     try:
-        run()
+        result = run()
     finally:
-        fused_engine.fused_ppr_iteration = kernel
-    return statistics.median(spent) * 1e3, sum(spent) * 1e3, len(spent)
+        trace.disarm_timeline()
+    out = {"ppr.wave.replay": [], "ppr.step": []}
+    for i in range(tl.n):
+        name = trace.TIMELINE_SPANS[tl.name[i]]
+        if name in out:
+            out[name].append((tl.end[i] - tl.start[i]) / 1e6)
+    return result, out["ppr.wave.replay"], out["ppr.step"]
 
 
 def _busy_profile(torch, run, passes=3, tries=3):
@@ -682,7 +681,10 @@ def service_phase(torch, np, g, dev, n_fixed=64, n_float=32, passes=10):
     waves = int(s_fused["waves"])           # over the timed passes
     if counts["fused_ppr_iteration"] == 0:
         _fail("the served path launched fused_ppr_iteration no time")
-    host_p50_ms, host_total_ms, host_calls = _host_ms_per_iteration(run_fused)
+    _, replay_ms, step_ms = _replay_host_ms(run_fused)
+    if not replay_ms or step_ms:
+        _fail(f"a warm fused pass replayed {len(replay_ms)} waves and made "
+              f"{len(step_ms)} eager fused_ppr_iteration calls (every wave replays)")
     busy = _busy_profile(torch, run_fused)
     if not busy["device_events"]:
         _fail("torch.profiler saw no device event in the served passes")
@@ -734,8 +736,8 @@ def service_phase(torch, np, g, dev, n_fixed=64, n_float=32, passes=10):
                single_wave_latency_p95_s=s_single["wave_latency_p95_s"],
                launches=counts, launches_per_wave={
                    k: v / waves_run for k, v in counts.items()},
-               host_ms_per_iteration_p50=host_p50_ms,
-               host_ms_iterations_per_pass=host_total_ms, iterations_per_pass=host_calls,
+               host_ms_per_replayed_wave_p50=statistics.median(replay_ms),
+               replayed_waves_per_pass=len(replay_ms),
                fused_profile=busy,
                float_max_score_diff=float_err,
                float_vertex_lists_equal=float_vert_agree,
@@ -748,8 +750,9 @@ def service_phase(torch, np, g, dev, n_fixed=64, n_float=32, passes=10):
           f"fused_ppr_iteration {counts['fused_ppr_iteration'] / waves_run:g}, "
           f"fused_ppr_dangling_mass {counts['fused_ppr_dangling_mass'] / waves_run:g} "
           f"(folded into fused_ppr_iteration's kernel A)")
-    print(f"[service] fused host time per fused_ppr_iteration call: p50 "
-          f"{host_p50_ms:.4f} ms ({host_calls} calls, {host_total_ms:.2f} ms of a pass)")
+    print(f"[service] fused host time per replayed wave (copies, graph launch, "
+          f"clone): p50 {statistics.median(replay_ms):.4f} ms ({len(replay_ms)} waves "
+          f"a pass, no eager fused_ppr_iteration call)")
     print(f"[service] fused profile over {busy['passes']} passes: window "
           f"{busy['window_ms']:.2f} ms, device busy {busy['device_busy_ms']:.2f} ms "
           f"({100 * busy['device_busy_share']:.1f}%), {busy['device_events']} device "
@@ -1820,9 +1823,9 @@ def _traced_waves(torch, np, g, dev, card, passes=5):
         for _ in range(passes):
             for label, s in services.items():
                 if label == "untraced" and policy is None:
-                    with _KernelCalls(torch) as calls:
-                        answers[label] = _serve_batch(s["svc"], PPRQuery, queries)
-                    host_ms += [ms for *_, ms in calls.calls]
+                    answers[label], replayed, _ = _replay_host_ms(
+                        lambda: _serve_batch(s["svc"], PPRQuery, queries))
+                    host_ms += replayed
                 else:
                     answers[label] = _serve_batch(s["svc"], PPRQuery, queries)
                 torch.cuda.synchronize()
@@ -1875,10 +1878,11 @@ def _traced_waves(torch, np, g, dev, card, passes=5):
     print(f"[trace] answers with tracing = without (Q1.25 raw, f32 within 1e-6), "
           f"iteration counts equal; sampled {sampled}/{submitted} queries at 0.1 "
           f"(seeded draw {want}); the three services in turns each pass; host ms per "
-          f"fused_ppr_iteration call on the main thread (untraced) {host_p50:.4f}; "
+          f"replayed wave on the main thread (untraced, no early exit) {host_p50:.4f}; "
           f"fused_ppr_iteration launches {launches}")
     return dict(runs=out, sampled=sampled, submitted=submitted, launches=launches,
-                host_ms_per_iteration_p50=host_p50, untraced=services["untraced"]["svc"])
+                host_ms_per_replayed_wave_p50=host_p50,
+                untraced=services["untraced"]["svc"])
 
 
 async def _post_all(http, host, port, bodies, concurrency):

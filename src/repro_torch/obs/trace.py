@@ -27,7 +27,7 @@ an ``is None`` check per instrumentation point.
 
 Beside the trees, a ``Timeline`` records flat host spans of the serving
 path (``TIMELINE_SPANS``: submit, admission, each wave's stages, each fused
-step) for whole-window profiling, where the
+step or a fixed-budget wave's replay) for whole-window profiling, where the
 trees' dicts and 256-trace ring would cost too much and their injected
 clock must not be read.  Its clock is ``time.perf_counter_ns``, the host
 clock a device trace can be tied to (a marker kernel launched at a known
@@ -171,7 +171,8 @@ TIMELINE_SPANS = (
     "ppr.wave",                # _run_wave, the whole call (with its wave id)
     "ppr.wave.plan",           # engine.plan + plan.initial
     "ppr.wave.iterate",        # plan.iterate: the host's enqueue of the steps
-    "ppr.step",                # one fused_ppr_iteration call
+    "ppr.step",                # one fused_ppr_iteration call, eager waves only
+    "ppr.wave.replay",         # a fixed-budget wave's captured graph: copies, replay, clone
     "ppr.wave.topk",           # plan.topk's enqueue
     "ppr.wave.device_wait",    # the top-K results' copies to the host
     "ppr.wave.resolve",        # recommendations, cache puts, telemetry

@@ -21,6 +21,17 @@ graph — behind a staleness latch (both family members are armed and each
 gets the callback), then builds a new dst stream from the refreshed layout
 and uploads it in place of the old one, whose device tensors it releases.
 
+A fixed-budget wave on CUDA replays its ``iterations`` steps as one captured
+CUDA graph (``FusedChain``): the host's work per wave drops from ``iterations``
+wrapper calls (allocations, operand checks, a 36-argument ctypes launch each)
+to a copy of ``Vmat`` into the chain, one graph launch and a clone of its
+output, while the device runs the same kernels with the same arguments in the
+same order, so answers are unchanged bit for bit.  It engages when the iterate is handed its own plan's step bound
+to one ``Vmat`` (``functools.partial(plan.step, Vmat)``), the tensors are on
+CUDA and no early-exit policy is set; anything else runs the eager loop.  The
+first wave of a (format, κ, α, budget, device, cold/warm) key runs eagerly on
+the capture stream and is captured after; a refresh drops every chain.
+
 The early-exit driver reuses the kernel's residual output instead of
 ``ConvergenceMonitor``'s separate device reductions, with identical exit
 decisions: a zero ∞-residual *is* the monitor's exact integer equality (the
@@ -30,8 +41,11 @@ remaining budget picks the bit-identical return state.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import threading
 import time
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +65,7 @@ __all__ = ["FusedRegisteredGraph", "FusedFloatEngine", "FusedFixedEngine"]
 DEFAULT_V_TILE = 512
 
 _STEP = _trace.span_id("ppr.step")
+_REPLAY = _trace.span_id("ppr.wave.replay")
 
 
 class FusedRegisteredGraph(RegisteredGraph):
@@ -75,6 +90,9 @@ class FusedRegisteredGraph(RegisteredGraph):
         self._fused_dirty: set = set()
         #: dst blocks the last refresh re-packetized; None for a full rebuild
         self.last_refresh_blocks: Optional[int] = None
+        #: captured fixed-budget waves by (format, κ, α, budget, device, warm)
+        self.fused_chains: Dict[tuple, FusedChain] = {}
+        self._chain_pool = None         # one memory pool for all the chains
         super().__init__(name, g, packet=packet, device=device)
 
     # ---- fused caches ------------------------------------------------------
@@ -139,6 +157,11 @@ class FusedRegisteredGraph(RegisteredGraph):
         self._fused_dirty = set()
         full = self._fused_full_rebuild or old is None
         self._fused_full_rebuild = False
+        if self.fused_chains:
+            # no replay may still run over what the release frees
+            torch.cuda.synchronize(self.device)
+            self.fused_chains.clear()
+            self._chain_pool = None
         uploaded = self._fused_stream.release() if self._fused_stream is not None else []
         had_dangling = self._dang_idx is not None
         self._fused_stream = self._dang_idx = None
@@ -164,24 +187,170 @@ class FusedRegisteredGraph(RegisteredGraph):
 # ---------------------------------------------------------------------------
 # wave plumbing
 # ---------------------------------------------------------------------------
-def _bind_fused_step(rg: FusedRegisteredGraph, fmt: Optional[QFormat],
-                     alpha: float, cell: dict):
-    """Step closure over the graph's current fused device state.  Each call
-    parks the kernel's [3, K] residual in ``cell`` for the iterate driver."""
-    topo, dang_idx = rg.fused_topology(), rg.fused_dangling()
-    val = rg.fused_values(fmt)
+class _FusedStep:
+    """(Vmat, P) → P_next over the graph's fused device state as bound at
+    plan time.  Each call parks the kernel's [3, K] residual in ``cell`` for
+    the iterate driver.  A class, not a closure, so that the fixed-budget
+    iterate can tell its own plan's step, and the operands it binds, from any
+    other callable."""
 
-    def step(Vmat, P):
+    def __init__(self, rg: FusedRegisteredGraph, fmt: Optional[QFormat],
+                 alpha: float, cell: dict):
+        self.rg, self.fmt, self.alpha, self.cell = rg, fmt, alpha, cell
+        self.topo, self.dang_idx = rg.fused_topology(), rg.fused_dangling()
+        self.val = rg.fused_values(fmt)
+
+    def operands(self):
+        return self.topo, self.val, self.dang_idx
+
+    def __call__(self, Vmat, P):
         tl = _trace.armed
         t0 = time.perf_counter_ns() if tl is not None else 0
-        P_next, res = fused_ppr_iteration(topo, val, dang_idx, Vmat, P, alpha=alpha,
-                                          fmt=fmt)
+        P_next, res = fused_ppr_iteration(self.topo, self.val, self.dang_idx, Vmat, P,
+                                          alpha=self.alpha, fmt=self.fmt)
         if tl is not None:
             tl.record(_STEP, t0, time.perf_counter_ns())
-        cell["res"] = res
+        self.cell["res"] = res
         return P_next
 
-    return step
+
+# ---------------------------------------------------------------------------
+# fixed-budget waves replayed as one CUDA graph
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class FusedChain:
+    """One captured fixed-budget wave: ``iterations`` fused steps over the
+    static ``vmat`` from the static ``p0`` (``vmat`` itself on a cold chain),
+    ending in ``out``, captured over ``operands`` (topology, values,
+    dangling list)."""
+    graph: "torch.cuda.CUDAGraph"
+    vmat: torch.Tensor
+    p0: Optional[torch.Tensor]
+    out: torch.Tensor
+    operands: Tuple
+
+
+class _DeviceChains:
+    """What every chain on one device shares.  ``stream``: the side stream
+    chains are captured on; their kernels count arrivals on its ticket words
+    (``_build.tickets``), which hold one launch at a time.  ``lock``:
+    serializes captures and replays (and with them the chains' static
+    buffers).  ``last``: the stream the last capture or replay was enqueued
+    on, which a caller on another stream waits for."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.lock = threading.Lock()
+        self.last = None
+
+    def order(self, stream) -> None:
+        """Order what is next enqueued on ``stream`` after the last capture
+        or replay: nothing to do on the same stream."""
+        if self.last is not None and self.last != stream:
+            stream.wait_stream(self.last)
+        self.last = stream
+
+
+_DEVICE_CHAINS: Dict[torch.device, _DeviceChains] = {}
+_DEVICE_CHAINS_LOCK = threading.Lock()
+
+
+def _device_chains(device: torch.device) -> _DeviceChains:
+    dc = _DEVICE_CHAINS.get(device)
+    if dc is None:
+        with _DEVICE_CHAINS_LOCK:
+            dc = _DEVICE_CHAINS.setdefault(device, _DeviceChains(device))
+    return dc
+
+
+def replay_wave(step: _FusedStep, Vmat: torch.Tensor, P0: torch.Tensor,
+                iterations: int) -> Optional[torch.Tensor]:
+    """``iterations`` fused steps from ``P0`` over ``Vmat`` through the
+    graph's chain for this wave's key: ``Vmat`` (and on a warm chain ``P0``)
+    copied into the chain's inputs, one graph launch, and a clone of its
+    output, which the next replay overwrites.  Without a chain the wave runs
+    eagerly on the capture stream, which warms the kernel library, the SM
+    count and the stream's ticket words, and the chain is captured after it.
+
+    None where a replay does not apply: CPU tensors, operands the kernels
+    would refuse (the eager loop raises on them), or a step bound to other
+    device state than the graph's current one (a plan made before a
+    refresh)."""
+    dev = P0.device
+    dom = torch.int32 if step.fmt is not None else torch.float32
+    if (dev.type != "cuda" or iterations < 1 or P0.dtype != dom
+            or Vmat.dtype != dom or Vmat.device != dev or Vmat.shape != P0.shape
+            or P0.dim() != 2 or P0.shape[0] != step.topo.num_rows):
+        return None
+    rg, warm = step.rg, P0 is not Vmat
+    key = (step.fmt, int(P0.shape[1]), step.alpha, iterations, dev, warm)
+    dc = _device_chains(dev)
+    tl = _trace.armed
+    with dc.lock:
+        chain = rg.fused_chains.get(key)
+        if chain is None:
+            current = (rg.fused_topology(), rg.fused_values(step.fmt), rg.fused_dangling())
+            if any(a is not b for a, b in zip(step.operands(), current)):
+                return None
+            return _capture(dc, step, Vmat, P0, iterations, key)
+        if any(a is not b for a, b in zip(step.operands(), chain.operands)):
+            return None
+        t0 = time.perf_counter_ns() if tl is not None else 0
+        dc.order(torch.cuda.current_stream(dev))
+        chain.vmat.copy_(Vmat)
+        if warm:
+            chain.p0.copy_(P0)
+        chain.graph.replay()
+        P = chain.out.clone()
+        if tl is not None:
+            tl.record(_REPLAY, t0, time.perf_counter_ns())
+    fused_ppr_iteration.launches += iterations      # the kernels ran them
+    replay_wave.replays += 1
+    return P
+
+
+replay_wave.captures = 0
+replay_wave.replays = 0
+
+
+def _capture(dc: _DeviceChains, step: _FusedStep, Vmat, P0, iterations: int,
+             key) -> torch.Tensor:
+    """Serve the wave eagerly on the capture stream, then capture its chain
+    (torch's side-stream recipe; nothing is allocated or zeroed for the
+    ticket words inside the capture: every launch leaves them at zero)."""
+    rg, dev, warm = step.rg, P0.device, P0 is not Vmat
+    cur = torch.cuda.current_stream(dev)
+    dc.order(cur)
+    dc.stream.wait_stream(cur)
+    with torch.cuda.stream(dc.stream):
+        P = P0
+        for _ in range(iterations):
+            P = step(Vmat, P)
+    cur.wait_stream(dc.stream)
+    P.record_stream(cur)
+    vmat = Vmat.clone()
+    p0 = P0.clone() if warm else None
+    if rg._chain_pool is None:
+        rg._chain_pool = torch.cuda.graph_pool_handle()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=rg._chain_pool, stream=dc.stream,
+                          capture_error_mode="thread_local"):
+        out = p0 if warm else vmat
+        for _ in range(iterations):
+            out, _ = fused_ppr_iteration(step.topo, step.val, step.dang_idx, vmat, out,
+                                         alpha=step.alpha, fmt=step.fmt)
+    fused_ppr_iteration.launches -= iterations      # captured, not run
+    rg.fused_chains[key] = FusedChain(graph, vmat, p0, out, step.operands())
+    replay_wave.captures += 1
+    return P
+
+
+def _own_vmat(step, own: _FusedStep):
+    """``Vmat`` when ``step`` is ``functools.partial(own, Vmat)``, else None."""
+    if (isinstance(step, functools.partial) and step.func is own
+            and len(step.args) == 1 and not step.keywords):
+        return step.args[0]
+    return None
 
 
 def _residual_delta(res, scale: Optional[int]) -> float:
@@ -193,21 +362,39 @@ def _residual_delta(res, scale: Optional[int]) -> float:
 
 def _make_fused_iterate(engine: WaveEngine, iterations: int,
                         convergence: Optional[ConvergencePolicy],
-                        fixed: bool, scale: Optional[int], cell: dict,
+                        fixed: bool, scale: Optional[int], own: _FusedStep,
                         trace_hook=None):
-    """The ``run_until_converged`` contract driven off the kernel's fused
-    residual: same check cadence, same exit conditions, same parity-correct
-    return states as ``ConvergenceMonitor`` — without its per-check
-    full-array device comparisons (the ∞-residual is already on device).
+    """Without a policy: the fixed budget, replayed as one CUDA graph when
+    the iterate is handed ``functools.partial(own, Vmat)`` on CUDA tensors
+    (``replay_wave``), else the engine's eager loop.
+
+    With one: the ``run_until_converged`` contract driven off the kernel's
+    fused residual: same check cadence, same exit conditions, same
+    parity-correct return states as ``ConvergenceMonitor`` — without its
+    per-check full-array device comparisons (the ∞-residual is already on
+    device).
 
     With a ``trace_hook`` the residual of every check is kept, checks before
     ``min_iterations`` included (one host read of the kernel's Σd² row
     each), and the hook gets the same dict on every exit; a hookless wave
     checks only from ``min_iterations`` on, where a check can exit."""
     if convergence is None:
-        return engine._make_iterate(iterations, None, fixed, scale,
-                                    trace_hook=trace_hook)
+        eager = engine._make_iterate(iterations, None, fixed, scale,
+                                     trace_hook=trace_hook)
+
+        def fixed_budget(step, P0):
+            Vmat = _own_vmat(step, own)
+            P = replay_wave(own, Vmat, P0, iterations) if Vmat is not None else None
+            if P is None:
+                return eager(step, P0)
+            if trace_hook is not None:
+                trace_hook({"iterations_run": iterations, "budget": iterations,
+                            "early_exit": False})
+            return P, iterations
+
+        return fixed_budget
     pol = convergence
+    cell = own.cell
     track = trace_hook is not None
 
     def finish(P, t, deltas):
@@ -281,13 +468,13 @@ class FusedFloatEngine(WaveEngine):
              topk_tile: Optional[int] = None, trace_hook=None) -> WavePlan:
         self.prepare(rg)
         num_vertices = rg.num_vertices
-        cell = {"res": None}
+        step = _FusedStep(rg, None, alpha, {"res": None})
         return WavePlan(
             engine=self.key, fixed=False, scale=None,
             initial=lambda pers: personalization_matrix(num_vertices, pers),
-            step=_bind_fused_step(rg, None, alpha, cell),
+            step=step,
             iterate=_make_fused_iterate(self, iterations, convergence, False,
-                                        None, cell, trace_hook=trace_hook),
+                                        None, step, trace_hook=trace_hook),
             topk=self._make_topk(topk_tile))
 
     def on_delta(self, rg, info) -> None:
@@ -321,14 +508,14 @@ class FusedFixedEngine(WaveEngine):
             raise ValueError(f"{self.key!r} engine needs a concrete Q format")
         self.prepare(rg, fmt)
         num_vertices = rg.num_vertices
-        cell = {"res": None}
+        step = _FusedStep(rg, fmt, alpha, {"res": None})
         return WavePlan(
             engine=self.key, fixed=True, scale=fmt.scale,
             initial=lambda pers: personalization_matrix_fixed(
                 num_vertices, pers, fmt),
-            step=_bind_fused_step(rg, fmt, alpha, cell),
+            step=step,
             iterate=_make_fused_iterate(self, iterations, convergence, True,
-                                        fmt.scale, cell, trace_hook=trace_hook),
+                                        fmt.scale, step, trace_hook=trace_hook),
             topk=self._make_topk(topk_tile))
 
     def on_delta(self, rg, info) -> None:

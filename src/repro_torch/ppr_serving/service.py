@@ -46,6 +46,7 @@ Not ported, each raising ``NotImplementedError``: the deprecated
 from __future__ import annotations
 
 import dataclasses
+import functools
 import random
 import threading
 import time
@@ -887,7 +888,9 @@ class PPRService:
         t_warm = self.time_fn()
         self.telemetry.record_stage("warm_start", t_warm - t_plan)
         t_span = _ns() if tl is not None else 0
-        P, iters_run = plan.iterate(lambda P_: plan.step(Vmat, P_), P0)
+        # the plan's own step bound to Vmat: what lets a fused fixed-budget
+        # iterate replay the wave as one captured graph
+        P, iters_run = plan.iterate(functools.partial(plan.step, Vmat), P0)
         if tl is not None:
             tl.record(_ITERATE, t_span, _ns(), wave_id)
         if iters_run < self.iterations:

@@ -6,6 +6,9 @@ card's machine has none), so on a GPU host it runs as
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import functools
+import threading
+
 import numpy as np
 import pytest
 
@@ -32,6 +35,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_gqa_plain,
 )
 from repro_torch.ppr_serving import FusedRegisteredGraph, get_engine  # noqa: E402
+from repro_torch.ppr_serving.engine import fused as efused  # noqa: E402
 
 ALPHA = 0.85
 V_PRIME = 641
@@ -482,6 +486,164 @@ def test_cuda_http_answers_equal_run_batch(cuda):
         else:
             assert [x["vertex"] for x in p["recommendations"]] == rec.vertices.tolist()
             assert np.array_equal(scores, rec.scores)
+
+
+# ---------------------------------------------------------------------------
+# fixed-budget waves replayed as one CUDA graph (engine/fused.py)
+# ---------------------------------------------------------------------------
+def _replays():
+    return efused.replay_wave.captures, efused.replay_wave.replays
+
+
+def _eager(plan, Vmat, P0, n=10):
+    P = P0
+    for _ in range(n):
+        P = plan.step(Vmat, P)
+    return P
+
+
+def _vmats(plan, g, n, kappa, cuda, seed=7):
+    rng = np.random.default_rng(seed)
+    return [plan.initial(torch.as_tensor(
+        rng.choice(g.num_vertices, kappa, replace=False).astype(np.int32), device=cuda))
+        for _ in range(n)]
+
+
+@pytest.mark.parametrize("fmt", [None, tfp.Q1_25], ids=["f32", "Q1.25"])
+@pytest.mark.parametrize("graph", ["erdos_renyi", "hub"])
+def test_cuda_replayed_iterate_equals_eager_steps(cuda, fmt, graph):
+    """The fused fixed-budget iterate handed its own step bound to ``Vmat``:
+    the first wave of a key runs eagerly and captures, later ones replay,
+    each equal to ten eager ``plan.step`` calls (raw bits for Q1.25, float32
+    bit for bit, the same kernels in the same order); a warm start (P0 ≠
+    Vmat) gets a chain of its own; each replay advances ``launches`` by the
+    budget; a returned state survives the next replay."""
+    g = erdos_renyi(3000, 30000, seed=2) if graph == "erdos_renyi" else _hub_graph()
+    rg = _fused_rg(g, cuda)
+    plan = get_engine("fused_fixed" if fmt else "fused_float").plan(
+        rg, fmt, alpha=ALPHA, iterations=10)
+    waves = _vmats(plan, g, 3, 16, cuda)
+    c0, r0 = _replays()
+    for i, Vmat in enumerate(waves):
+        want = _eager(plan, Vmat, Vmat)
+        before = tfused.fused_ppr_iteration.launches
+        P, n = plan.iterate(functools.partial(plan.step, Vmat), Vmat)
+        torch.cuda.synchronize()
+        assert n == 10 and torch.equal(P, want)
+        assert tfused.fused_ppr_iteration.launches == before + 10
+        assert _replays() == (c0 + 1, r0 + i)
+    P0 = _eager(plan, waves[0], waves[0], 3)
+    for Vmat in waves[1:]:
+        P, _ = plan.iterate(functools.partial(plan.step, Vmat), P0)
+        torch.cuda.synchronize()
+        assert torch.equal(P, _eager(plan, Vmat, P0))
+    assert _replays() == (c0 + 2, r0 + 3) and len(rg.fused_chains) == 2
+    P_a, _ = plan.iterate(functools.partial(plan.step, waves[0]), waves[0])
+    P_b, _ = plan.iterate(functools.partial(plan.step, waves[1]), waves[1])
+    torch.cuda.synchronize()
+    assert torch.equal(P_a, _eager(plan, waves[0], waves[0]))
+    assert torch.equal(P_b, _eager(plan, waves[1], waves[1]))
+
+
+def test_cuda_each_kappa_gets_its_own_chain(cuda):
+    """κ 16 then 32 (the admission controller's deepening) on one graph:
+    two chains, each replay equal to the eager steps."""
+    g = erdos_renyi(3000, 30000, seed=2)
+    rg = _fused_rg(g, cuda)
+    plan = get_engine("fused_fixed").plan(rg, tfp.Q1_25, alpha=ALPHA, iterations=10)
+    for kappa in (16, 32):
+        for Vmat in _vmats(plan, g, 2, kappa, cuda, seed=kappa):
+            P, _ = plan.iterate(functools.partial(plan.step, Vmat), Vmat)
+            assert torch.equal(P, _eager(plan, Vmat, Vmat))
+    assert sorted(key[1] for key in rg.fused_chains) == [16, 32]
+
+
+def _mixed_queries(g, n, seed):
+    from repro_torch.ppr_serving import PPRQuery
+
+    verts = np.random.default_rng(seed).choice(g.num_vertices, n, replace=False)
+    return [PPRQuery("g", int(v), k=10, precision=(25, None)[i % 2])
+            for i, v in enumerate(verts)]
+
+
+def _same_answers(got, want):
+    for a, b in zip(got, want, strict=True):
+        assert (a.query.vertex, a.precision) == (b.query.vertex, b.precision)
+        assert np.array_equal(a.vertices, b.vertices)
+        assert np.array_equal(a.scores, b.scores)
+
+
+def test_cuda_replay_after_a_delta_recaptures_and_equals_a_fresh_registration(cuda):
+    """A delta drops the graph's chains; the next waves capture anew over the
+    refreshed stream and answer as a fresh registration of the merged graph
+    does (Q1.25 and float32 bit for bit: array-equal streams, the same
+    kernels)."""
+    from repro_torch.ppr_serving import PPRService
+
+    g = erdos_renyi(3000, 30000, seed=2)
+    svc = PPRService(kappa=16, iterations=10, cache_capacity=0, device=cuda)
+    svc.register_graph("g", g, formats=[25], engine="fused")
+    svc.run_batch(_mixed_queries(g, 64, seed=1))
+    rg = svc.registered_graph("g")
+    assert len(rg.fused_chains) == 2                 # Q1.25 and f32, κ 16, cold
+    svc.apply_delta("g", random_delta(rg.source, np.random.default_rng(3),
+                                      n_add=300, n_remove=100))
+    assert rg.fused_chains == {}
+    c0, r0 = _replays()
+    queries = _mixed_queries(g, 64, seed=2)
+    got = svc.run_batch(queries)
+    c1, r1 = _replays()
+    assert (c1 - c0, r1 - r0) == (2, 2) and len(rg.fused_chains) == 2
+    fresh = PPRService(kappa=16, iterations=10, cache_capacity=0, device=cuda)
+    fresh.register_graph("g", rg.source, formats=[25], engine="fused")
+    _same_answers(got, fresh.run_batch(queries))
+
+
+def test_cuda_two_threads_serving_at_once_give_the_serial_answers(cuda):
+    """Two threads drive waves through one fused service at once (as the
+    HTTP pump and ``run_batch`` can), the second on a stream of its own:
+    every answer equals the one served serially, and the waves replayed."""
+    from repro_torch.ppr_serving import PPRService
+
+    g = erdos_renyi(3000, 30000, seed=2)
+    svc = PPRService(kappa=16, iterations=10, cache_capacity=0, device=cuda)
+    svc.register_graph("g", g, formats=[25], engine="fused")
+    batches = [_mixed_queries(g, 160, seed=s) for s in (4, 5)]
+    serial = [svc.run_batch(b) for b in batches]
+    _, r0 = _replays()
+    out = [None, None]
+    start = threading.Barrier(2)
+
+    def serve(i):
+        with torch.cuda.stream(torch.cuda.Stream() if i else torch.cuda.current_stream()):
+            start.wait()
+            out[i] = [svc.run_batch(batches[i]) for _ in range(3)]
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i in (0, 1):
+        for got in out[i]:
+            _same_answers(got, serial[i])
+    assert _replays()[1] > r0
+
+
+def test_cuda_early_exit_service_never_replays(cuda):
+    """An ``early_exit=True`` fused service runs its waves eagerly: no
+    capture, no replay, no chain, and the kernels launch."""
+    from repro_torch.ppr_serving import PPRService
+
+    g = erdos_renyi(3000, 30000, seed=2)
+    svc = PPRService(kappa=16, iterations=30, early_exit=True, cache_capacity=0,
+                     device=cuda)
+    svc.register_graph("g", g, formats=[25], engine="fused")
+    before, launches = _replays(), tfused.fused_ppr_iteration.launches
+    svc.run_batch(_mixed_queries(g, 64, seed=6))
+    torch.cuda.synchronize()
+    assert _replays() == before and svc.registered_graph("g").fused_chains == {}
+    assert tfused.fused_ppr_iteration.launches > launches
 
 
 # flash attention: float32 to 1e-4 (the kernel and the plain version sum in

@@ -6,6 +6,8 @@ version on CPU tensors).
 Re-runs of ``tests/test_pallas_engine.py``'s parity tests (lines 51, 64, 76
 and 145) with the port on one side and the reference on the other.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -23,6 +25,9 @@ from repro.ppr_serving import get_engine as rget  # noqa: E402
 from repro.ppr_serving import topk as rtopk  # noqa: E402
 from repro_torch.autotune import convergence as tconv  # noqa: E402
 from repro_torch.convert import graph_from_arrays, raw_to_numpy, raw_to_torch  # noqa: E402
+from repro_torch.graph_updates import random_delta  # noqa: E402
+from repro_torch.obs import trace as ttrace  # noqa: E402
+from repro_torch.ppr_serving.engine import fused as tfused_engine  # noqa: E402
 from repro_torch.core.fixed_point import format_for_bits as tformat_for_bits  # noqa: E402
 from repro_torch.ppr_serving import FusedRegisteredGraph  # noqa: E402
 from repro_torch.ppr_serving import PPRQuery as TQuery  # noqa: E402
@@ -197,6 +202,76 @@ def test_fused_layout_covers_every_edge_once():
     topo = rg.fused_topology()
     assert topo.col.dtype == torch.int32 and topo.num_rows == rg.num_vertices
     assert topo.num_edges == rg.fused_values(TFMT).shape[0] == real
+
+
+# ---------------------------------------------------------------------------
+# the fixed-budget replay's gates (the replay itself runs only on the card:
+# tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+def _replay_counts():
+    return tfused_engine.replay_wave.captures, tfused_engine.replay_wave.replays
+
+
+@pytest.mark.parametrize("engine,fmt", [("fused_fixed", TFMT), ("fused_float", None)],
+                         ids=["fixed", "float"])
+def test_fused_iterate_on_cpu_or_given_a_lambda_never_captures(engine, fmt):
+    """A CPU plan handed its own step bound to ``Vmat`` and one handed a
+    lambda both run the eager loop: no capture, no replay, no chain, and the
+    answers of ten plain ``plan.step`` calls."""
+    rg = _fused_rg(_graph(seed=2))
+    plan = tget(engine).plan(rg, fmt, alpha=ALPHA, iterations=10)
+    Vmat = plan.initial(torch.as_tensor([1, 7, 123, 640], dtype=torch.int32))
+    before = _replay_counts()
+    P_lambda, n_lambda = plan.iterate(lambda P_: plan.step(Vmat, P_), Vmat)
+    P_own, n_own = plan.iterate(functools.partial(plan.step, Vmat), Vmat)
+    P = Vmat
+    for _ in range(10):
+        P = plan.step(Vmat, P)
+    assert n_lambda == n_own == 10
+    assert torch.equal(P_lambda, P) and torch.equal(P_own, P)
+    assert _replay_counts() == before and rg.fused_chains == {}
+    # the iterate recognises only its own plan's step, bound to one Vmat
+    other = tget(engine).plan(rg, fmt, alpha=ALPHA, iterations=10)
+    assert tfused_engine._own_vmat(functools.partial(plan.step, Vmat), plan.step) is Vmat
+    for step in (lambda P_: plan.step(Vmat, P_), functools.partial(other.step, Vmat),
+                 functools.partial(plan.step, Vmat, Vmat), functools.partial(plan.step)):
+        assert tfused_engine._own_vmat(step, plan.step) is None
+
+
+def test_service_on_cpu_never_replays():
+    """Fused waves of a CPU service (fixed and float) run eagerly: the
+    counts of captures and replays stay where they were."""
+    before = _replay_counts()
+    svc = TService(kappa=4, iterations=6, cache_capacity=0, device=CPU)
+    recs = _serve(svc, _port(_graph(seed=3)), "fused", 20, query=TQuery)
+    recs += svc.run_batch([TQuery("g", v, k=5, precision=None) for v in (2, 9)])
+    assert [r.source for r in recs] == ["wave"] * 6
+    assert _replay_counts() == before
+    assert svc.registered_graph("g").fused_chains == {}
+
+
+def test_refresh_fused_drops_every_chain_before_releasing_the_stream(monkeypatch):
+    """``refresh_fused`` empties the chain cache, after a device synchronize
+    taken while the old stream still holds its uploads."""
+    rg = _fused_rg(_graph(seed=5))
+    rg.fused_topology(), rg.fused_values(TFMT), rg.fused_dangling()
+    old = rg._fused_stream
+    rg.fused_chains[("key",)] = object()
+    rg._chain_pool = object()
+    seen = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: seen.append((device, len(old._device))))
+    rg.apply_delta(random_delta(rg.source, np.random.default_rng(0), n_add=20, n_remove=10))
+    for key in ("fused_float", "fused_fixed"):
+        tget(key).on_delta(rg, None)
+    assert seen == [(rg.device, 2)]           # topology and Q values still held
+    assert rg.fused_chains == {} and rg._chain_pool is None
+    assert old._device == {} and rg._fused_stream is not old
+
+
+def test_replay_span_is_a_timeline_span():
+    assert "ppr.wave.replay" in ttrace.TIMELINE_SPANS
+    assert ttrace.TIMELINE_SPANS[ttrace.span_id("ppr.wave.replay")] == "ppr.wave.replay"
 
 
 # ---------------------------------------------------------------------------
