@@ -121,7 +121,7 @@ exits non-zero.  It prints, in order:
    16 on the mesh against a fused service: precisions, controller, answers
    and shadow scores equal, each shadow reference through
    ``sharded_float``; (f) ``PPR_PAPER_1M`` (2^20 vertices, 2^24 edges) on
-   the mesh against the fused family (v_tile 8,192) on the same graph:
+   the mesh against the fused family at its default on the same graph:
    states and top-K raw-equal, wave p50 each, stream bytes; (g) ``ppr_run
    --serve --shards 4`` as a subprocess, its count lines equal to phase
    8's ``--serve``;
@@ -934,7 +934,7 @@ def delta_phase(torch, np, graphs, dev):
         # the refreshed stream against a fresh build of the merged graph
         fresh = PPRService(kappa=K, iterations=10, device=dev)
         frg = fresh.register_graph("g", rg.source, formats=[26], engine="fused")
-        st, fst = rg.fused_stream(), frg.fused_stream()  # build_dst_stream(build_fused_layout(merged, 512, 256))
+        st, fst = rg.fused_stream(), frg.fused_stream()
         if st.slice_edges != fst.slice_edges or st.num_rows != fst.num_rows or not all(
                 np.array_equal(getattr(st, f), getattr(fst, f)) for f in DELTA_FIELDS) \
                 or not np.array_equal(st.val.view(np.uint32), fst.val.view(np.uint32)):
@@ -2629,13 +2629,12 @@ def _sharded_auto(torch, np, g, dev, card):
 
 def _paper_envelope(torch, np, dev, card, waves=5):
     """(f) ``PPR_PAPER_1M``: 2^20 vertices, 2^24 edges (``erdos_renyi`` from a
-    seed), κ = 16, Q1.25, on a 4-shard mesh against the fused family on the
-    same graph.  The fused family runs at v_tile 8,192: at its serving
-    default of 512 the padded host layout of this graph would hold ~1e9
-    slots.  Both families' plans drive the same waves (initial, iterate,
-    top-K, to a synchronize): states raw-equal, top-K equal, wave p50 each;
-    then one served batch on the mesh equals the fused plan's top-K; the
-    device bytes of the shard streams against the fused stream."""
+    seed), κ = 16, Q1.25, on a 4-shard mesh against the fused family at its
+    serving default on the same graph.  Both families' plans drive the same
+    waves (initial, iterate, top-K, to a synchronize): states raw-equal,
+    top-K equal, wave p50 each; then one served batch on the mesh equals the
+    fused plan's top-K; the device bytes of the shard streams against the
+    fused stream."""
     from repro_torch.configs.ppr_paper import PPR_PAPER_1M as W
     from repro_torch.core.fixed_point import format_for_bits
     from repro_torch.graphs import erdos_renyi
@@ -2654,7 +2653,7 @@ def _paper_envelope(torch, np, dev, card, waves=5):
     get_engine("sharded_fixed").prepare(srg, fmt)
     t_shard = time.perf_counter() - t0
     t0 = time.perf_counter()
-    frg = FusedRegisteredGraph("g", g, v_tile=8192, device=dev)
+    frg = FusedRegisteredGraph("g", g, device=dev)
     get_engine("fused_fixed").prepare(frg, fmt)
     t_fused = time.perf_counter() - t0
 
@@ -2697,7 +2696,7 @@ def _paper_envelope(torch, np, dev, card, waves=5):
                   f"from the fused plan's top-K")
     p50 = {k: statistics.median(v) * 1e3 for k, v in secs.items()}
     print(f"[envelope] PPR_PAPER_1M: |V|={g.num_vertices:,} |E|={g.num_edges:,} made in "
-          f"{t_gen:.1f} s; registered: 4 shards {t_shard:.1f} s, fused (v_tile 8192) "
+          f"{t_gen:.1f} s; registered: 4 shards {t_shard:.1f} s, fused "
           f"{t_fused:.1f} s; {waves} Q1.25 waves of {W.kappa} in turns: states and top-K "
           f"raw-equal, wave p50 sharded {p50['sharded_fixed']:.3f} ms, fused "
           f"{p50['fused_fixed']:.3f} ms; a served batch on the mesh = the fused top-K; "

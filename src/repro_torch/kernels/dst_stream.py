@@ -1,12 +1,12 @@
 """The pad-free, dst-sorted edge stream that both PPR kernels read.
 
 No counterpart in the reference: its Pallas kernels stream the packet-padded
-layouts (``BlockedCOO`` packets, ``FusedLayout`` rows), and so do the host
-sides of the port.  ``build_dst_stream`` takes the form an entry point
-already holds — a ``BlockedCOO`` (through ``ops.packet_metadata``), a
-``FusedLayout`` (through ``fused_schedule``), or edge arrays ``(dst, src,
-val, num_rows)`` such as one shard's bucket of ``partition_edges_by_dst`` —
-globalises its local indices, drops every pad
+layouts (``BlockedCOO`` packets, ``FusedLayout`` rows).  ``build_dst_stream``
+takes the form an entry point already holds — a ``BlockedCOO`` (through
+``ops.packet_metadata``), a ``FusedLayout`` (through ``fused_schedule``), or
+edge arrays ``(dst, src, val, num_rows)`` such as a ``COOGraph``'s own (the
+fused family's served stream) or one shard's bucket of
+``partition_edges_by_dst`` — globalises its local indices, drops every pad
 slot and sorts the real edges stably by global dst.  A real
 edge has value 1/outdeg > 0 and a pad has 0.0, so dropping the zero-valued
 slots is exact in float32 and in fixed point.  The result is CSR over dst
@@ -33,6 +33,7 @@ schedule was cut at, the one operand through which the kernels take a stream.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -90,6 +91,8 @@ class DstStream:
     slice_edges: int           # edges a warp takes; a multiple of 32
     slice_row: np.ndarray      # [num_slices+1] int32 index in nz_rows (see above)
     _device: Dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    #: host seconds of the uploads ``topology`` and ``values`` made, summed
+    upload_s: float = dataclasses.field(default=0.0, repr=False, compare=False)
 
     @property
     def num_edges(self) -> int:
@@ -113,18 +116,22 @@ class DstStream:
         """The stream's ``StreamTopology`` on ``device`` (uploaded once)."""
         key = ("topology", str(device))
         if key not in self._device:
+            t0 = time.perf_counter()
             self._device[key] = StreamTopology(
                 **{n: torch.as_tensor(np.ascontiguousarray(getattr(self, n)), device=device)
                    for n in _INDEX},
                 slice_edges=self.slice_edges,
                 src_rows=int(self.col.max()) + 1 if self.num_edges else 0)
+            self.upload_s += time.perf_counter() - t0
         return self._device[key]
 
     def values(self, device, fmt: Optional[QFormat] = None) -> torch.Tensor:
         """[E] values on ``device``: float32, or int32 raw bits of ``fmt``."""
         key = ("values", str(device), fmt)
         if key not in self._device:
+            t0 = time.perf_counter()
             self._device[key] = torch.as_tensor(self.raw_values(fmt), device=device)
+            self.upload_s += time.perf_counter() - t0
         return self._device[key]
 
     def release(self) -> List[Tuple]:

@@ -27,16 +27,16 @@ an ``is None`` check per instrumentation point.
 
 Beside the trees, a ``Timeline`` records flat host spans of the serving
 path (``TIMELINE_SPANS``: submit, admission, each wave's stages, each fused
-step or a fixed-budget wave's replay) for whole-window profiling, where the
-trees' dicts and 256-trace ring would cost too much and their injected
-clock must not be read.  Its clock is ``time.perf_counter_ns``, the host
-clock a device trace can be tied to (a marker kernel launched at a known
-perf-counter instant), so device operations can be attributed to the span
-that launched them.  One process-wide slot, ``armed``, holds the timeline
-being recorded: the engine layer has no handle on the service, and the
-caller that profiles arms and disarms it (``arm_timeline`` /
-``disarm_timeline``).  Off, each instrumentation point pays one ``is
-None`` check.
+step or a fixed-budget wave's replay, a fused graph's stream build) for
+whole-window profiling, where the trees' dicts and 256-trace ring would
+cost too much and their injected clock must not be read.  Its clock is
+``time.perf_counter_ns``, the host clock a device trace can be tied to (a
+marker kernel launched at a known perf-counter instant), so device
+operations can be attributed to the span that launched them.  One
+process-wide slot, ``armed``, holds the timeline being recorded: the engine
+layer has no handle on the service, and the caller that profiles arms and
+disarms it (``arm_timeline`` / ``disarm_timeline``).  Off, each
+instrumentation point pays one ``is None`` check.
 """
 from __future__ import annotations
 
@@ -177,6 +177,7 @@ TIMELINE_SPANS = (
     "ppr.wave.device_wait",    # the top-K results' copies to the host
     "ppr.wave.resolve",        # recommendations, cache puts, telemetry
     "ppr.wave.callbacks",      # the futures' resolution (callers' callbacks)
+    "ppr.graph.stream",        # a fused graph's dst stream built from its COO arrays
 )
 _SPAN_IDS = {name: i for i, name in enumerate(TIMELINE_SPANS)}
 

@@ -10,16 +10,21 @@ on the CPU their plain versions.  The fixed member is bit-identical (raw
 bits) to ``FixedEngine``; the float member matches ``FloatEngine`` to f32
 accumulation-order noise.
 
-State layout (on ``FusedRegisteredGraph``): the packetized ``FusedLayout``
-on the host, the dst stream built from it, and on the device only the
-stream: its topology (``row_ptr``, ``col``, slice schedule), the dangling
-list, the float values and one raw value array per prepared Q format.
-``on_delta`` re-packetizes only the dst blocks an edge delta touched
-(``changed_dst // v_tile``) — per-block rebuilds are deterministic, so the
-incremental layout is array-equal to a fresh registration of the merged
-graph — behind a staleness latch (both family members are armed and each
-gets the callback), then builds a new dst stream from the refreshed layout
-and uploads it in place of the old one, whose device tensors it releases.
+State layout (on ``FusedRegisteredGraph``): on the host the dst stream,
+built straight from the graph's (dst, src)-sorted COO arrays, and on the
+device only the stream: its topology (``row_ptr``, ``col``, slice schedule),
+the dangling list, the float values and one raw value array per prepared Q
+format.  The stream is array-equal to the one of the packet-padded
+``FusedLayout`` (a stable sort by dst keeps the COO's src order inside a
+row), which no served path builds: at 2^20 vertices and the default
+``v_tile`` that layout would hold ~1e9 slots.  ``on_delta``, behind a
+staleness latch (both family members are armed and each gets the callback),
+builds a new dst stream from the merged COO arrays and uploads it in place
+of the old one, whose device tensors it releases.  A ``FusedLayout`` built
+on demand (``fused_layout()``, for the parity tests) is kept up to date too:
+only the dst blocks a delta touched (``changed_dst // v_tile``) are
+re-packetized, and per-block rebuilds are deterministic, so the incremental
+layout is array-equal to a fresh build of the merged graph.
 
 A fixed-budget wave on CUDA replays its ``iterations`` steps as one captured
 CUDA graph (``FusedChain``): the host's work per wave drops from ``iterations``
@@ -66,14 +71,16 @@ DEFAULT_V_TILE = 512
 
 _STEP = _trace.span_id("ppr.step")
 _REPLAY = _trace.span_id("ppr.wave.replay")
+_STREAM = _trace.span_id("ppr.graph.stream")
 
 
 class FusedRegisteredGraph(RegisteredGraph):
-    """Registered graph carrying the fused layouts.
+    """Registered graph carrying the fused family's state.
 
     Defers the full-layout upload (fused waves never read it) and owns the
-    fused caches: the host ``FusedLayout``, the dst stream built from it, and
-    the stream's device uploads (topology once, values once per format)."""
+    fused caches: the dst stream of the COO arrays (host), its device
+    uploads (topology once, values once per format), and the padded
+    ``FusedLayout`` only once a caller asks for it."""
 
     engine_family = "fused"
 
@@ -88,7 +95,8 @@ class FusedRegisteredGraph(RegisteredGraph):
         self._fused_stale = False
         self._fused_full_rebuild = False
         self._fused_dirty: set = set()
-        #: dst blocks the last refresh re-packetized; None for a full rebuild
+        #: dst blocks the last refresh re-packetized (0 with no layout built);
+        #: None for a full rebuild
         self.last_refresh_blocks: Optional[int] = None
         #: captured fixed-budget waves by (format, κ, α, budget, device, warm)
         self.fused_chains: Dict[tuple, FusedChain] = {}
@@ -97,21 +105,41 @@ class FusedRegisteredGraph(RegisteredGraph):
 
     # ---- fused caches ------------------------------------------------------
     def fused_layout(self):
+        """The packet-padded ``FusedLayout`` (host), built on the first call:
+        the parity tests' view of the stream, which no served path reads.
+        Once built, deltas re-packetize its dirty blocks."""
         if self._fused_layout is None:
             self._fused_layout = build_fused_layout(self.source, self.v_tile,
                                                     self.packet)
         return self._fused_layout
 
     def fused_stream(self) -> DstStream:
-        """The pad-free dst stream of the fused layout (host)."""
+        """The pad-free dst stream of the graph's COO arrays (host),
+        array-equal to ``build_dst_stream(self.fused_layout())``.  Before any
+        delta, the build's seconds go to ``register_timings["stream"]``."""
         if self._fused_stream is None:
-            self._fused_stream = build_dst_stream(self.fused_layout())
+            g = self.source
+            t0 = time.perf_counter_ns()
+            self._fused_stream = build_dst_stream((g.x, g.y, g.val, g.num_vertices))
+            t1 = time.perf_counter_ns()
+            tl = _trace.armed
+            if tl is not None:
+                tl.record(_STREAM, t0, t1)
+            if self.epoch == 0:
+                self.register_timings["stream"] = (t1 - t0) / 1e9
         return self._fused_stream
+
+    def _note_uploads(self, stream: DstStream) -> None:
+        if self.epoch == 0:
+            self.register_timings["upload"] = stream.upload_s
 
     def fused_topology(self):
         """The stream's ``StreamTopology`` on the graph's device (``row_ptr``,
         ``col`` and the slice schedule, uploaded once)."""
-        return self.fused_stream().topology(self.device)
+        stream = self.fused_stream()
+        topo = stream.topology(self.device)
+        self._note_uploads(stream)
+        return topo
 
     def fused_dangling(self):
         """The int32 list of dangling vertices on the graph's device."""
@@ -122,11 +150,15 @@ class FusedRegisteredGraph(RegisteredGraph):
 
     def fused_values(self, fmt: Optional[QFormat] = None):
         """[E] value operand — f32 (fmt=None) or raw int32 bits."""
-        return self.fused_stream().values(self.device, fmt)
+        stream = self.fused_stream()
+        val = stream.values(self.device, fmt)
+        self._note_uploads(stream)
+        return val
 
     # ---- delta ingestion ---------------------------------------------------
     def apply_delta(self, delta):
-        """Host merge plus dirty-dst-block tracking for the fused layout.
+        """Host merge, plus dirty-dst-block tracking where a fused layout was
+        built.
 
         ``changed_dst`` covers every destination whose incident edge set or
         edge values moved (including removed edges' old rows); vertex growth
@@ -139,23 +171,24 @@ class FusedRegisteredGraph(RegisteredGraph):
             else:
                 self._fused_dirty.update(
                     int(b) for b in np.unique(info.changed_dst // self.v_tile))
+        if self._fused_layout is not None or self._fused_stream is not None:
             self._fused_stale = True
         else:
             self._dang_idx = None       # nothing built from the stream yet
         return info
 
     def refresh_fused(self) -> None:
-        """Re-packetize the dirty dst blocks, rebuild the dst stream from the
-        refreshed layout and upload what the old stream had uploaded (its
-        topology, the dangling list, the values of every format), releasing
-        the old uploads.  Idempotent across the family's two armed engines
-        (staleness latch)."""
+        """Rebuild the dst stream from the merged COO arrays and upload what
+        the old stream had uploaded (its topology, the dangling list, the
+        values of every format), releasing the old uploads; re-packetize the
+        dirty dst blocks of the fused layout where one was built.  Idempotent
+        across the family's two armed engines (staleness latch)."""
         if not self._fused_stale:
             return
         self._fused_stale = False
         old, dirty = self._fused_layout, self._fused_dirty
         self._fused_dirty = set()
-        full = self._fused_full_rebuild or old is None
+        full = self._fused_full_rebuild
         self._fused_full_rebuild = False
         if self.fused_chains:
             # no replay may still run over what the release frees
@@ -166,9 +199,10 @@ class FusedRegisteredGraph(RegisteredGraph):
         had_dangling = self._dang_idx is not None
         self._fused_stream = self._dang_idx = None
         t0 = time.perf_counter()
-        self._fused_layout = build_fused_layout(self.source, self.v_tile, self.packet,
-                                                reuse=None if full else old,
-                                                dirty=None if full else dirty)
+        if old is not None:
+            self._fused_layout = build_fused_layout(self.source, self.v_tile, self.packet,
+                                                    reuse=None if full else old,
+                                                    dirty=None if full else dirty)
         t1 = time.perf_counter()
         self.fused_stream()
         t2 = time.perf_counter()

@@ -63,6 +63,9 @@ class RegisteredGraph:
         #: host seconds of the last delta's stages ("merge", "requantize",
         #: then each refresh's own), for the operator and the chip script
         self.delta_timings: Dict[str, float] = {}
+        #: host seconds of what registration built for the graph's family
+        #: (the fused family: its dst stream's "stream" build and "upload")
+        self.register_timings: Dict[str, float] = {}
         if not self._defer_full_upload:
             self.device_full()
 

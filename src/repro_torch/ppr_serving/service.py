@@ -761,8 +761,16 @@ class PPRService:
         stats under lru_* — the two diverge once anything touches the cache
         outside submit() (e.g. the prefetcher) — the precision controller's
         ladder counters under autotune_*, and the warm-start store's and the
-        prefetcher's under warm_* and prefetch_* when armed."""
+        prefetcher's under warm_* and prefetch_* when armed.
+        ``register_stream_s``, where a registered graph built a dst stream
+        (the fused family), sums those streams' build and upload seconds:
+        registration state, which ``telemetry.reset()`` leaves alone."""
         s = self.telemetry.summary()
+        built = [rg.register_timings for rg in tuple(self._graphs.values())
+                 if "stream" in rg.register_timings]
+        if built:
+            s["register_stream_s"] = sum(t["stream"] + t.get("upload", 0.0)
+                                         for t in built)
         s.update({f"lru_{k}": v for k, v in self.cache.stats().items()})
         s.update({f"autotune_{k}": v for k, v in self.controller.summary().items()})
         if self._warm is not None:
