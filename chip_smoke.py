@@ -16,10 +16,15 @@ exits non-zero.  It prints, in order:
    live) and ``pl_2e5`` graphs at K=16, v_tile=512, packet=256, in float32
    and Q1.25; the host layouts' padding factors, the dst stream's slices
    and CTAs, and its device bytes against those of the padded packet layouts;
+   then the top-K selection kernel on [V, 16] states at gnp_2e5's and
+   paper_1m's V (k = 10, one vertex excluded a column) against its plain
+   version, the stable sort, and its times beside one ``torch.topk``; and
+   at k = 200, four passes of the kernel;
 3. the served path: ``PPRService(kappa=16, iterations=10, device="cuda")``
    on ``gnp_2e5`` with ``engine="fused"`` and ``engine="single"``, 64 queries
    at precision 26 and 32 in float32 each, compared with each other and with
-   the scipy float64 oracle; the fused kernels' launch counts over the run;
+   the scipy float64 oracle; the fused kernels' launch counts over the run
+   (``topk_select`` once a wave, in either family);
    the host time of a served ``fused_ppr_iteration`` call, and the device's
    busy share of three fused passes under ``torch.profiler``;
 4. early exit on ``pl_2e5`` (``early_exit``, Q1.19, budgets 40 and 120):
@@ -574,6 +579,68 @@ def kernel_phase(torch, np, graphs, dev, timing: bool):
     return rows, streams
 
 
+TOPK_SHAPES = {"gnp_2e5": 200_000, "paper_1m": 1 << 20}   # [V, K] states, K = 16
+TOPK_K = 10                                                 # the cells' k
+TOPK_DEEP = 200                                             # a k of four passes
+
+
+def topk_phase(torch, np, dev):
+    """Phase 2's last part: the top-K selection kernel
+    (``kernels/topk_select.py``) on a PPR-scale state [V, 16] at gnp_2e5's
+    and paper_1m's V, in float32 and Q1.25, k = 10 with each column's
+    personalization vertex excluded (as a served wave asks): ids and score
+    bits equal to the plain version (the stable sort the port ran before,
+    here on the card), then its times beside the plain version's and one
+    ``torch.topk`` of the same keys (a yardstick of time only: its ties fall
+    in no promised order).  Then k = 200, which the kernel selects in four
+    passes of at most KMAX, held to the plain version and timed the same
+    way (``deep_ms``, ``deep_device_ms``)."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.fixed_point import Q1_25
+    from repro_torch.kernels.topk_select import topk_select, topk_select_plain
+
+    rows = []
+    for gname, v in TOPK_SHAPES.items():
+        for fmt in (None, Q1_25):
+            dom = "f32" if fmt is None else fmt.name
+            p_np, vm_np = _inputs(np, SimpleNamespace(num_vertices=v), fmt, seed=v % 97)
+            p = torch.as_tensor(p_np, device=dev)
+            pers = torch.as_tensor(np.argmax(vm_np, axis=0).astype(np.int32), device=dev)
+            got = topk_select(p, TOPK_K, exclude=pers)
+            want = topk_select_plain(p, TOPK_K, exclude=pers)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                _fail(f"topk_select {gname} {dom}: differs from the plain version")
+            nbytes = v * K * 4 + K * TOPK_K * 8
+            row = dict(kernel="topk_select", graph=gname, domain=dom, max_abs_err=0.0,
+                       bound_ms=_bound_ms(nbytes), unpadded_bound_ms=_bound_ms(nbytes))
+            _timings(torch, row, lambda: topk_select(p, TOPK_K, exclude=pers),
+                     lambda: topk_select_plain(p, TOPK_K, exclude=pers),
+                     plain_repeats=REPEATS)
+            _library_timings(torch, row, lambda: torch.topk(p, TOPK_K + 1, dim=0))
+            got = topk_select(p, TOPK_DEEP, exclude=pers)
+            want = topk_select_plain(p, TOPK_DEEP, exclude=pers)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                _fail(f"topk_select {gname} {dom} k={TOPK_DEEP}: differs from the plain "
+                      f"version")
+            row["deep_k"] = TOPK_DEEP
+            row["deep_ms"] = _time_ms(torch, lambda: topk_select(p, TOPK_DEEP, exclude=pers))
+            row["deep_device_ms"] = _time_ms(
+                torch, lambda: topk_select(p, TOPK_DEEP, exclude=pers), hide_host=True)
+            rows.append(row)
+            print(f"[topk] {gname} {dom} [{v}, {K}] k={TOPK_K}: kernel = plain; "
+                  f"{row['ms']:.4f} ms a call, device {row['device_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({100 * row['bound_ms'] / row['device_ms']:.1f}% "
+                  f"of device), plain {row['plain_ms']:.4f} ms, torch.topk "
+                  f"{row['library_ms']:.4f} ms (device {row['library_device_ms']:.4f}), "
+                  f"{row['device_ops_per_call']} device ops a call "
+                  f"{json.dumps({k: round(t, 5) for k, t in row['device_ms_by_kernel'].items()})}; "
+                  f"k={TOPK_DEEP} = plain, {row['deep_ms']:.4f} ms a call, device "
+                  f"{row['deep_device_ms']:.4f} ms")
+            del p, pers, got, want
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the served path
 # ---------------------------------------------------------------------------
@@ -681,6 +748,9 @@ def service_phase(torch, np, g, dev, n_fixed=64, n_float=32, passes=10):
     waves = int(s_fused["waves"])           # over the timed passes
     if counts["fused_ppr_iteration"] == 0:
         _fail("the served path launched fused_ppr_iteration no time")
+    if counts["topk_select"] != waves_run:
+        _fail(f"the fused family's {waves_run} waves launched topk_select "
+              f"{counts['topk_select']} times (one a wave)")
     _, replay_ms, step_ms = _replay_host_ms(run_fused)
     if not replay_ms or step_ms:
         _fail(f"a warm fused pass replayed {len(replay_ms)} waves and made "
@@ -688,8 +758,12 @@ def service_phase(torch, np, g, dev, n_fixed=64, n_float=32, passes=10):
     busy = _busy_profile(torch, run_fused)
     if not busy["device_events"]:
         _fail("torch.profiler saw no device event in the served passes")
-    single, t_single, _, s_single, _ = _serve(
+    reset_launch_counts()
+    single, t_single, single_waves_run, s_single, _ = _serve(
         torch, PPRService, PPRQuery, g, "single", queries, dev, passes)
+    if launch_counts()["topk_select"] != single_waves_run:
+        _fail(f"the single family's {single_waves_run} waves launched topk_select "
+              f"{launch_counts()['topk_select']} times (one a wave)")
     float_err, float_vert_agree = 0.0, 0
     for rf, rs in zip(fused, single):
         if rf.precision != rs.precision:
@@ -4761,6 +4835,7 @@ def main() -> int:
     graphs = _graphs()
     print(f"[graphs] generated in {time.perf_counter() - t0:.1f} s")
     rows, streams = kernel_phase(torch, np, graphs, dev, timing=True)
+    rows += topk_phase(torch, np, dev)
     service = service_phase(torch, np, graphs["gnp_2e5"], dev)
     early = early_exit_phase(torch, np, graphs["pl_2e5"], dev)
     t0 = time.perf_counter()
@@ -4842,7 +4917,9 @@ def main() -> int:
                "fused_ppr_iteration": ("src/repro_torch/csrc/fused_ppr.cu",
                                        "src/repro/kernels/fused_ppr.py:404"),
                "fused_ppr_dangling_mass": ("src/repro_torch/csrc/fused_ppr.cu",
-                                           "src/repro/kernels/fused_ppr.py:365")}
+                                           "src/repro/kernels/fused_ppr.py:365"),
+               "topk_select": ("src/repro_torch/csrc/topk_select.cu",
+                               "none: lax.top_k in src/repro/ppr_serving/topk.py")}
     launches_source = {
         "coo_spmv": "phase 5: core.spmv.spmv_kernel, and phase 10: sharded served "
                     "path (PPRService on a 4-shard mesh, gnp_2e5 and pl_2e5: each "
@@ -4858,7 +4935,10 @@ def main() -> int:
                                "thread at K = 16, 32 and 64 (gnp_2e5)",
         "fused_ppr_dangling_mass": "phase 3: PPRService served path, where the "
                                    "dangling fold runs inside fused_ppr_iteration's "
-                                   "kernel A and this standalone launch is not made"}
+                                   "kernel A and this standalone launch is not made",
+        "topk_select": "phase 3: PPRService served path, the fused family's waves "
+                       "(one launch a wave, as the single family's are checked to "
+                       "make)"}
     kernels = []
     for r in rows:
         src, repl = sources[r["kernel"]]

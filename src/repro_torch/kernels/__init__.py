@@ -6,6 +6,8 @@
               fold, SpMV, combine and residual.
   Both read the pad-free, dst-sorted edge stream of ``dst_stream.py``
   through the shared device code of csrc/dst_stream.cuh.
+- topk_select: a wave's top-K, one pass over the final state
+               (csrc/topk_select.cu).
 - fixed_matmul:    reduced-precision serving matmul, f32/bf16 activations x
                    int8 per-channel weights (csrc/fixed_matmul.cu).
 - flash_attention: blocked online-softmax attention for the LM stack, causal
@@ -21,12 +23,15 @@ from repro_torch.kernels.coo_spmv import coo_spmv_kernel
 from repro_torch.kernels.fixed_matmul import quantized_matmul_kernel
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_gqa
 from repro_torch.kernels.fused_ppr import dangling_mass, fused_ppr_iteration
+# the wrapper under another name: ``kernels.topk_select`` stays the module
+from repro_torch.kernels.topk_select import topk_select as _topk_select
 
 #: every kernel wrapper, by name; each carries a ``launches`` count
 KERNEL_WRAPPERS = {
     "coo_spmv": coo_spmv_kernel,
     "fused_ppr_dangling_mass": dangling_mass,
     "fused_ppr_iteration": fused_ppr_iteration,
+    "topk_select": _topk_select,
     "quantized_matmul": quantized_matmul_kernel,
     "flash_attention": flash_attention_gqa,
 }

@@ -36,7 +36,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "build_log", "check_oper
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <repo>/build/repro_torch (this file is <repo>/src/repro_torch/kernels/_build.py)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("coo_spmv", "fused_ppr", "fixed_matmul", "flash_attention")
+SOURCES = ("coo_spmv", "fused_ppr", "topk_select", "fixed_matmul", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

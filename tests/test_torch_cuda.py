@@ -22,6 +22,7 @@ from repro_torch.graphs import erdos_renyi  # noqa: E402
 from repro_torch.core.quantization import quantize_weights  # noqa: E402
 from repro_torch.kernels import fused_ppr as tfused  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import topk_select as tsel  # noqa: E402
 from repro_torch.kernels.coo_spmv import coo_spmv_kernel, coo_spmv_plain  # noqa: E402
 from repro_torch.kernels.dst_stream import build_dst_stream  # noqa: E402
 from repro_torch.kernels.fixed_matmul import (  # noqa: E402
@@ -35,7 +36,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_gqa_plain,
 )
 from repro_torch.ppr_serving import FusedRegisteredGraph, get_engine  # noqa: E402
+from repro_torch.ppr_serving.topk import topk_dense  # noqa: E402
 from repro_torch.ppr_serving.engine import fused as efused  # noqa: E402
+from test_torch_topk_select import rank_columns  # noqa: E402
 
 ALPHA = 0.85
 V_PRIME = 641
@@ -644,6 +647,103 @@ def test_cuda_early_exit_service_never_replays(cuda):
     torch.cuda.synchronize()
     assert _replays() == before and svc.registered_graph("g").fused_chains == {}
     assert tfused.fused_ppr_iteration.launches > launches
+
+
+# ---------------------------------------------------------------------------
+# top-K selection (csrc/topk_select.cu) against the plain sort
+# ---------------------------------------------------------------------------
+TOPK_ROWS = {"KMAX": tsel.KMAX, "97": 97, "4099": 4099, "2e5": 200_000, "2^20": 1 << 20}
+
+
+def _no_sort(*args, **kwargs):
+    raise AssertionError("a CUDA top-K reached torch.sort")
+
+
+def _plain_top(P_cpu, full, k, ex):
+    """The plain ``topk_dense(P_cpu, k, exclude=ex)`` as numpy (raw values
+    as uint32): called as it is up to 4,099 rows; at 2e5 and 2^20 rows read
+    off ``full``, that function's top min(TOPK_DEEP + 1, V) of the same
+    columns, with the excluded vertex deleted, so that a case sorts P once."""
+    if P_cpu.shape[0] <= 4099:
+        i, v = topk_dense(P_cpu, k, exclude=None if ex is None else torch.from_numpy(ex))
+    else:
+        i, v = full
+        if ex is not None:
+            order = torch.sort((i == torch.from_numpy(ex)[:, None]).to(torch.int8),
+                               dim=1, stable=True).indices
+            i, v = torch.gather(i, 1, order), torch.gather(v, 1, order)
+        i, v = i[:, :k], v[:, :k]
+    v = v.numpy()
+    return i.numpy(), v.view(np.uint32) if v.dtype == np.int32 else v
+
+
+def _kernel_top(P_dev, k, ex_dev):
+    """``topk_dense`` on the card through the kernel: no synchronising call,
+    no ``torch.sort``, one launch a pass of at most KMAX entries."""
+    before = tsel.topk_select.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "sort", _no_sort)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            i, v = topk_dense(P_dev, k, exclude=ex_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert tsel.topk_select.launches == before + -(-k // tsel.KMAX)
+    v = v.cpu().numpy()
+    return i.cpu().numpy(), v.view(np.uint32) if v.dtype == np.int32 else v
+
+
+TOPK_DEEP = 2 * tsel.KMAX + 3          # three passes
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["f32", "Q1.25"])
+@pytest.mark.parametrize("rows", list(TOPK_ROWS))
+@pytest.mark.parametrize("kappa", [16, 32, 64])
+def test_cuda_topk_select_equals_the_plain_sort(cuda, kappa, rows, raw):
+    """k of 1, 10, 32, KMAX - 1 and KMAX, and in passes KMAX + 1, 2·KMAX + 3 and
+    every vertex, the exclusion absent, inside each column's top and outside
+    the graph, on columns with heavy ties, all zeros, fewer nonzeros than k,
+    ties at the top and (float32) signed zeros or (Q1.25) raw values at and
+    above 2^31: ids and score bits equal the plain version's."""
+    v = TOPK_ROWS[rows]
+    P = rank_columns(v, kappa, raw, seed=kappa + v)
+    P_cpu = torch.from_numpy(P.view(np.int32) if raw else P)
+    P_dev = P_cpu.to(cuda)
+    full = topk_dense(P_cpu, min(TOPK_DEEP + 1, v))
+    # inside: each column's entry at rank j % 12; outside: -1 or V
+    inside = full[0].numpy()[np.arange(kappa), np.arange(kappa) % 12].astype(np.int32)
+    outside = np.where(np.arange(kappa) % 2, -1, v).astype(np.int32)
+    for ex in (None, inside, outside):
+        ex_dev = None if ex is None else torch.from_numpy(ex).to(cuda)
+        most = v - (ex is not None)
+        ks = (1, 10, 32, tsel.KMAX - 1, tsel.KMAX, tsel.KMAX + 1, TOPK_DEEP)
+        ks += (most,) if v <= 4099 else ()
+        for k in sorted({k for k in ks if k <= most}):
+            got_i, got_v = _kernel_top(P_dev, k, ex_dev)
+            want_i, want_v = _plain_top(P_cpu, full, k, ex)
+            assert np.array_equal(got_i, want_i), (k, ex is None)
+            assert np.array_equal(got_v.view(np.uint32), want_v.view(np.uint32)), k
+
+
+def test_cuda_served_waves_select_top_k_in_the_kernel(cuda):
+    """Every wave of the fused and the single family launches the selection
+    kernel once; their Q1.25 answers are equal."""
+    from repro_torch.ppr_serving import PPRService
+
+    g = erdos_renyi(3000, 30000, seed=2)
+    queries = _mixed_queries(g, 96, seed=7)
+    out = {}
+    for engine in ("fused", "single"):
+        svc = PPRService(kappa=16, iterations=10, cache_capacity=0, device=cuda)
+        svc.register_graph("g", g, formats=[25], engine=engine)
+        svc.run_batch(queries[:16])
+        svc.telemetry.reset()
+        launches = tsel.topk_select.launches
+        out[engine] = svc.run_batch(queries)
+        assert tsel.topk_select.launches - launches == svc.telemetry_summary()["waves"] > 0
+    fixed = [(a, b) for a, b in zip(out["fused"], out["single"]) if a.precision != "f32"]
+    assert fixed
+    _same_answers(*zip(*fixed))
 
 
 # flash attention: float32 to 1e-4 (the kernel and the plain version sum in
